@@ -1,5 +1,5 @@
 """mpm_tpu_torch — the MLS-MPM engine of ``mpm_tpu`` ported to PyTorch, with
-its simulation kernels written by hand in CUDA for NVIDIA Hopper.
+its simulation and render kernels written by hand in CUDA for NVIDIA Hopper.
 
 The package mirrors ``mpm_tpu``'s module names; ``ops/pallas`` becomes
 ``ops/cuda`` and the CUDA sources live in ``csrc``. It imports PyTorch and

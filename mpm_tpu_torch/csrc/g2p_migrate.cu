@@ -1,12 +1,13 @@
 // Kernel F for Hopper (sm_90a): G2P gather and APIC C rebuild, the advection
 // tail, then the three axis phases of bucket migration with overflow and
-// air-window ceiling rejection.
+// air-window ceiling rejection, and on request the per-cell splat emission.
 //
 // Replaces: mpm_tpu/ops/pallas/fused.py:_fused_kernel (called from
-// _g2p_migrate_fused, entry substep_fused), the TPU's kernel F, without its
-// optional splat emission. What it computes is mpm_tpu/ops/bucketed
-// g2p_bucketed followed by migrate; the plain PyTorch version is
-// mpm_tpu_torch/ops/cuda/g2p_migrate.g2p_migrate_plain.
+// _g2p_migrate_fused, entries substep_fused and substep_fused_emit), the
+// TPU's kernel F. What it computes is mpm_tpu/ops/bucketed g2p_bucketed
+// followed by migrate; the plain PyTorch version is
+// mpm_tpu_torch/ops/cuda/g2p_migrate.g2p_migrate_plain, followed by
+// ops/cuda/extract_cells.cell_splats_plain when splats are emitted.
 //
 // What bounds it on this card: device-memory traffic. Each slot's state is
 // 68 B in float32 storage (pos 12, vel 12, C 36, mass 4, ids 4) and 44 B
@@ -36,13 +37,19 @@
 //               [stay, from-left, from-right] slot order, writes the first K
 //               out of place into the other buffer, zeroes the rest (ids -1)
 //               and counts any excess in `lost`.
+//   emission    when asked, kernel X's per-cell extraction
+//               (extract_cells.cuh) runs as the chain's last launch, on the
+//               post-migration buffers and the same stream. The TPU fused it
+//               into the last sweep to save a re-read of the state; here the
+//               re-read is the same ~40 MB at the pool window (tens of us),
+//               so a separate launch is kept.
 // Counters are int32 atomicAdds, exact in any order. Neighbours come from
 // 3D coordinates with bounds checks; the plain version's flat offsets wrap
 // rows instead, and the two agree because the position clamps keep every
 // axis's edge planes empty. The TPU kernel's plane sweep, rings, packed
 // bf16 pairs and zero-mover gates do not carry over.
 
-#include "mpm_common.cuh"
+#include "extract_cells.cuh"
 
 namespace {
 
@@ -290,7 +297,8 @@ struct Buf {
 
 template <typename VC, typename RAW>
 cudaError_t launch(const G2PParams& p, Buf in, const float* gvel, Buf A, Buf B, float* R,
-                   int* cnt, cudaStream_t stream) {
+                   int* cnt, const mpm::RenderScals* rs, float* splats,
+                   cudaStream_t stream) {
   const int T = 256;
   const size_t KC = (size_t)p.g.K * p.g.C;
   g2p_tail<VC><<<blocks_for(KC, T), T, 0, stream>>>(
@@ -313,6 +321,10 @@ cudaError_t launch(const G2PParams& p, Buf in, const float* gvel, Buf A, Buf B, 
     src = dst;
     dst = next;
   }
+  // src is now B, the result
+  if (splats != nullptr)
+    return mpm::launch_extract(src.pos, (const VC*)src.vel, src.mass, p.g.K, p.g.C, *rs,
+                               splats, stream);
   return cudaSuccess;
 }
 
@@ -326,19 +338,24 @@ int g2p_migrate_max_interactions() { return MAX_INTER; }
 // Input state (pos, vel, C, mass, ids) and grid velocity gvel [3, C]. A and
 // B are two full state buffers; the result is left in B. R is a [K, C]
 // scratch row. cnt [4] int32 = lost, cfl_clamped, deferred, ceiling, added to.
+// splats [5, C] f32, or null for no emission; scals: 16 host floats
+// (mpm::RenderScals), read only when splats is not null.
 int g2p_migrate(const void* params, const float* pos, const void* vel, const void* Cm,
                 const float* mass, const int* ids, const float* gvel, float* a_pos,
                 void* a_vel, void* a_C, float* a_mass, int* a_ids, float* b_pos, void* b_vel,
                 void* b_C, float* b_mass, int* b_ids, float* R, int* cnt, int vc_bf16,
-                void* stream) {
+                const float* scals, float* splats, void* stream) {
   const G2PParams& p = *(const G2PParams*)params;
   Buf in = {(float*)pos, (void*)vel, (void*)Cm, (float*)mass, (int*)ids};
   Buf A = {a_pos, a_vel, a_C, a_mass, a_ids};
   Buf B = {b_pos, b_vel, b_C, b_mass, b_ids};
+  mpm::RenderScals rs;
+  if (splats != nullptr)
+    for (int i = 0; i < 16; ++i) rs.s[i] = scals[i];
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = vc_bf16
-      ? launch<__nv_bfloat16, uint16_t>(p, in, gvel, A, B, R, cnt, s)
-      : launch<float, uint32_t>(p, in, gvel, A, B, R, cnt, s);
+      ? launch<__nv_bfloat16, uint16_t>(p, in, gvel, A, B, R, cnt, &rs, splats, s)
+      : launch<float, uint32_t>(p, in, gvel, A, B, R, cnt, &rs, splats, s);
   return (int)err;
 }
 

@@ -35,8 +35,11 @@ NVCC_FLAGS = [
 # and fusing saves some 7% of its time on an H100 (PERF.md). Kernel F
 # rounds every multiply and add apart, as the plain version does: its
 # positions are held to atol 1e-6, less than one float32 ulp above 16 cells,
-# so a fused position update fails that bar at full width.
-KERNEL_FLAGS = {"g2p_migrate": ["--fmad=false"]}
+# so a fused position update fails that bar at full width. Kernel X (and
+# F's emission) must break depth ties as the plain version does, and kernel
+# BL's filter size is a ceil of a quotient, so both round apart too.
+KERNEL_FLAGS = {name: ["--fmad=false"]
+                for name in ("g2p_migrate", "extract_cells", "blur_depth")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}  # kernels built by this process
@@ -67,27 +70,44 @@ def _digest(src: Path, flags: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The shared library of csrc/<name>.cu, built if needed."""
-    if name in _libs:
-        return _libs[name]
+def _so_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    flags = _flags(name)
-    so = BUILD_DIR / f"lib{name}-{_digest(src, flags)}.so"
-    if not so.exists():
+    return BUILD_DIR / f"lib{name}-{_digest(src, _flags(name))}.so"
+
+
+def build_all(names) -> None:
+    """Build the missing libraries of `names`, one nvcc each, all started
+    together; raise with nvcc's output if any fails."""
+    jobs = []
+    for name in names:
+        so = _so_path(name)
+        if name in _libs or so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{res.stdout}{res.stderr}")
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((name, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, so, tmp, proc, t0 in jobs:
+        out, _ = proc.communicate()
+        build_logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{out}")
+            continue
         os.replace(tmp, so)
         build_seconds[name] = time.perf_counter() - t0
-        build_logs[name] = res.stdout + res.stderr
-    lib = ctypes.CDLL(str(so))
-    _libs[name] = lib
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of csrc/<name>.cu, built if needed."""
+    if name not in _libs:
+        build_all([name])
+        _libs[name] = ctypes.CDLL(str(_so_path(name)))
+    return _libs[name]
 
 
 def ptr(t) -> ctypes.c_void_p:

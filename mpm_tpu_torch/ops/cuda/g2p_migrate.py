@@ -1,6 +1,7 @@
 """Kernel F: G2P, the advection tail and 3-axis bucket migration in one
 hand-written CUDA kernel chain (csrc/g2p_migrate.cu), beside its plain
-PyTorch version.
+PyTorch version, with the optional per-cell splat emission of the render
+path.
 
 `g2p_migrate(state, grid, config, fp, interactions)` takes the plain
 version for a state on the CPU and launches the kernel for a state on a
@@ -20,9 +21,13 @@ from ...core.state import Grid
 from ..bucketed import BucketState, g2p_bucketed, migrate
 from ..interact import Interaction
 from . import build
+from .extract_cells import cell_splats_plain, render_scals_for, scals_arg
 from .p2g_update import check_state, check_supported
 
+__all__ = ["g2p_migrate", "g2p_migrate_plain", "render_scals_for"]
+
 launches = 0  # kernel launches by g2p_migrate (plain-version calls not counted)
+emit_launches = 0  # of those, launches that emitted splats
 
 MAX_INTER = 8  # csrc/g2p_migrate.cu MAX_INTER
 _INTER_VALS = 7
@@ -82,7 +87,7 @@ def _params(config: SimConfig, fp: FluidParams,
 def _lib() -> ctypes.CDLL:
     lib = build.load("g2p_migrate")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.g2p_migrate.argtypes = [vp] * 19 + [ci, vp]
+    lib.g2p_migrate.argtypes = [vp] * 19 + [ci, vp, vp, vp]
     lib.g2p_migrate.restype = ci
     lib.g2p_migrate_params_size.argtypes = []
     lib.g2p_migrate_params_size.restype = ci
@@ -96,16 +101,21 @@ def _lib() -> ctypes.CDLL:
 
 def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
                 fp: FluidParams, interactions: Sequence[Interaction] = (),
-                emit_splats: bool = False) -> BucketState:
-    """G2P + tail + migration: the plain version on the CPU, kernel F on CUDA."""
-    global launches
-    if emit_splats:
-        raise NotImplementedError(
-            "splat emission from kernel F comes with the render path "
-            "(ROADMAP.md, queue 2, item 'kernel F splat emission')")
+                emit_splats: bool = False, render_scals: torch.Tensor | None = None):
+    """G2P + tail + migration: the plain version on the CPU, kernel F on CUDA.
+
+    With emit_splats=True it returns (state, splats): splats [5, C] are the
+    per-cell splat points of the result (ops/cuda/extract_cells), for the 16
+    `render_scals` of render_scals_for(view, cam)."""
+    global launches, emit_launches
+    if emit_splats and render_scals is None:
+        raise ValueError("emit_splats needs render_scals (render_scals_for(view, cam))")
     dev = state.pos.device
     if dev.type == "cpu":
-        return g2p_migrate_plain(state, grid, config, fp, interactions)
+        out = g2p_migrate_plain(state, grid, config, fp, interactions)
+        if emit_splats:
+            return out, cell_splats_plain(out.pos, out.vel, out.mass, render_scals)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"kernel F runs on CUDA devices, not {dev}")
     check_supported(config)
@@ -126,6 +136,8 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
     cnt = torch.stack([state.lost, state.cfl_clamped, state.deferred,
                        state.ceiling]).to(torch.int32)
     params = _params(config, fp, interactions)
+    splats = (torch.empty((5, config.num_cells), dtype=torch.float32, device=dev)
+              if emit_splats else None)
     lib = _lib()
     P = build.ptr
     with torch.cuda.device(dev):
@@ -133,9 +145,13 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
             ctypes.byref(params), P(state.pos), P(state.vel), P(state.C),
             P(state.mass), P(state.ids), P(gvel), *[P(t) for t in a],
             *[P(t) for t in b], P(R), P(cnt),
-            int(config.vc_dtype == torch.bfloat16), build.stream_of(dev))
+            int(config.vc_dtype == torch.bfloat16),
+            scals_arg(render_scals) if emit_splats else None,
+            P(splats) if emit_splats else None, build.stream_of(dev))
     build.check_rc("g2p_migrate", rc)
     launches += 1
+    emit_launches += int(emit_splats)
     pos, vel, C, mass, ids = b
-    return BucketState(pos=pos, vel=vel, C=C, mass=mass, ids=ids, lost=cnt[0],
-                       cfl_clamped=cnt[1], deferred=cnt[2], ceiling=cnt[3])
+    out = BucketState(pos=pos, vel=vel, C=C, mass=mass, ids=ids, lost=cnt[0],
+                      cfl_clamped=cnt[1], deferred=cnt[2], ceiling=cnt[3])
+    return (out, splats) if emit_splats else out

@@ -239,5 +239,6 @@ def test_cuda_wrappers_take_plain_version_on_cpu():
 def test_kernels_refuse_configs_outside_the_slice(kw):
     with pytest.raises(NotImplementedError):
         kp.check_supported(SimConfig(grid_res=(16, 16, 16)).replace(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # splat emission is in the slice now; it needs the render scalars
+    with pytest.raises(ValueError, match="render_scals"):
         kf.g2p_migrate(None, None, None, None, emit_splats=True)

@@ -129,3 +129,19 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
     assert int(res.stdout.split()[1]) >= 15
+
+
+def test_sim_path_imports_no_renderer():
+    """The simulation's entry points and kernel wrappers, kernel F's splat
+    emission included, load without the renderer: ops never imports render."""
+    code = (
+        "import sys\n"
+        "import mpm_tpu_torch, mpm_tpu_torch.ops.cuda.step, mpm_tpu_torch.ops.cuda.g2p_migrate\n"
+        "bad = [m for m in sys.modules if m.startswith('mpm_tpu_torch.render')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")

@@ -1,5 +1,5 @@
-"""Kernels P and F against their plain PyTorch versions on a CUDA card, at
-the small scene of tests/test_fused.py. Every test needs the card and skips
+"""Kernels P, F, X and BL against their plain PyTorch versions on a CUDA
+card, at the small scene of tests/test_fused.py. Every test needs the card and skips
 without one. They import no JAX, so on a machine without JAX run them with
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -157,5 +157,87 @@ def test_unsupported_configs_raise(dev):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kp.p2g_update(state, config.replace(fixed_point=True), fluid)
     grid = kp.p2g_update(state, config, fluid)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="render_scals"):
         kf.g2p_migrate(state, grid, config, fluid, emit_splats=True)
+
+
+# ---- render kernels: X (extract), F's splat emission, BL (blur) ----------
+
+def _view_cam():
+    from mpm_tpu_torch.render import Camera, default_view
+
+    return default_view((16, 16, 16)), Camera(width=160, height=96)
+
+
+def _assert_splats_equal(got, want):
+    """Kernel X's bar: rows 2 (depth) and 4 (count) equal, rows 0, 1 and 3
+    within rtol 1e-6 and atol 1e-5 (tests/test_render.py:370). Built
+    without fused multiply-adds, the kernel rounds as the plain version
+    does, so the rows are expected equal."""
+    assert torch.equal(got[2], want[2]) and torch.equal(got[4], want[4])
+    for r in (0, 1, 3):
+        torch.testing.assert_close(got[r], want[r], rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_kernel_x_matches_plain(dev, storage):
+    from mpm_tpu_torch.render import extract_kernel as kx
+
+    config, fluid, state = _scene(dev, storage)
+    state = _warm(state, config, fluid)
+    view, cam = _view_cam()
+    n0 = kx.launches
+    got = kx.extract_cell_splats(state, view, cam)
+    torch.cuda.synchronize()
+    assert kx.launches == n0 + 1
+    want = kx.extract_cell_splats_plain(state, view, cam)
+    assert int((want[2] < kx.CELL_BG).sum()) > 0
+    _assert_splats_equal(got, want)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_kernel_f_emission_matches_plain(dev, storage):
+    from mpm_tpu_torch.ops.cuda import step as cuda_step
+    from mpm_tpu_torch.render import extract_kernel as kx
+
+    config, fluid, state = _scene(dev, storage)
+    state = _warm(state, config, fluid)
+    view, cam = _view_cam()
+    rs = kx.render_scals_for(view, cam)
+    n0 = kf.emit_launches
+    got, splats = cuda_step.substep_emit(state, config, fluid, (), rs)
+    torch.cuda.synchronize()
+    assert kf.emit_launches == n0 + 1
+    grid = kp.p2g_update(state, config, fluid)
+    want = kf.g2p_migrate_plain(state, grid, config, fluid)
+    _assert_states_close(got, want, storage == "bfloat16")
+    _assert_splats_equal(splats, kx.cell_splats_plain(got.pos, got.vel, got.mass, rs))
+    torch.testing.assert_close(splats, kx.extract_cell_splats(got, view, cam), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (96, 200)])
+def test_kernel_bl_matches_plain(dev, shape):
+    """A fluid blob with noise, a hole and a near patch at depth 0.25, so
+    the filter size reaches its cap of 100 at these heights (bar:
+    tests/test_render.py:240)."""
+    from mpm_tpu_torch.render import Camera
+    from mpm_tpu_torch.render import blur_kernel as kb
+    from mpm_tpu_torch.render.splat import BG_DEPTH
+
+    h, w = shape
+    rng = np.random.default_rng(7)
+    depth = np.full((h, w), BG_DEPTH, np.float32)
+    depth[10:50, 40:190] = 30.0 + rng.uniform(-2, 2, (40, 150)).astype(np.float32)
+    depth[20:25, 90:110] = 0.25
+    depth[30:34, 60:64] = BG_DEPTH
+    d = torch.from_numpy(depth).to(dev)
+    cam = Camera(width=w, height=h)
+    kw = dict(radius=100, max_filter=100, blur_filter_size=7.0, depth_threshold=10.0)
+    pc = kb.proj_const_for(cam, 7.0)
+    assert int(kb.filter_sizes(d, 100, 100, pc).max()) == 100
+    n0 = kb.launches
+    got = kb.blur_depth_kernel(d, cam, **kw)
+    torch.cuda.synchronize()
+    assert kb.launches == n0 + 1
+    want = kb.blur_depth_plain(d, cam, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-4)
