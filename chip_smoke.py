@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds the kernels from mpm_tpu_torch/csrc (P, F with its splat emission,
-X, BL and the 2D pair sim2d and migrate2d, one nvcc each, in parallel),
-holds each against its plain PyTorch version at full width, replays the 3D
+X, BL, the 2D pair sim2d and migrate2d, and the per-pass kernels A, B, D
+and E, one nvcc each, in parallel), holds each against its plain PyTorch
+version at full width (P and F in fixed-point mode too), replays the 3D
 and 2D golden trajectories through the kernels, drives the main paths (the
 1M benchmark pool under the air-window engine; its render loop at 640x360
 and at 1080p on the frozen window, and the windowed render path; the 1M
-dam-break; the 100k 2D benchmark and its frame), runs the CLI, and times
-each kernel beside its plain version and its roofline bound. Every main
-path runs with the launch counts set to 0 just before it and read just
-after. Any failure raises, so the exit code is not 0. The line before the
+dam-break; the 100k 2D benchmark and its frame; fluid_3d through the
+per-pass kernels under MPM_PALLAS_OLD=1; the fixed-point scene S4), runs
+the CLI, and times each kernel beside its plain version and its roofline
+bound. Every main path runs with the launch counts set to 0 just before it
+and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
 """
@@ -32,13 +34,18 @@ import numpy as np
 import torch
 
 from mpm_tpu_torch.__main__ import kernel_launches, nvidia_smi_power
+from mpm_tpu_torch.core.state import Grid
 from mpm_tpu_torch.models.scenes import (benchmark_dam_break, benchmark_scene,
-                                         benchmark_scene_2d, dam_break_2d, fluid_3d)
-from mpm_tpu_torch.ops import bucketed
+                                         benchmark_scene_2d, dam_break_2d, fluid_3d,
+                                         fluid_3d_fixed_point)
+from mpm_tpu_torch.ops import bucketed, fixed_point
 from mpm_tpu_torch.ops.cuda import build
 from mpm_tpu_torch.ops.cuda import g2p_migrate as kf
+from mpm_tpu_torch.ops.cuda import migrate_planes as ke
 from mpm_tpu_torch.ops.cuda import p2g_update as kp
+from mpm_tpu_torch.ops.cuda import planes as kpl
 from mpm_tpu_torch.ops.cuda import substep2d as k2d
+from mpm_tpu_torch.ops.grid import update_grid
 from mpm_tpu_torch.ops.interact import Interaction
 from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.render import (Camera, background_for_view, bucket_frame_2d, default_view,
@@ -57,7 +64,7 @@ from mpm_tpu_torch.utils.timing import cuda_time_ms, fenced_windows
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_3D = os.path.join(ROOT, "tests", "golden", "fluid_3d_small_bucketed.npz")
 GOLDEN_2D = os.path.join(ROOT, "tests", "golden", "dam_break_2d_oracle.npz")
-KERNELS = ["p2g_update", "g2p_migrate", "substep2d", "extract_cells", "blur_depth"]
+KERNELS = ["p2g_update", "g2p_migrate", "substep2d", "extract_cells", "blur_depth", "planes"]
 
 
 def phase(name: str, msg: str) -> None:
@@ -183,6 +190,82 @@ def check_bl(depth, cam, label: str) -> float:
 def reset_launches() -> None:
     kp.launches = kf.launches = kf.emit_launches = kx.launches = kb.launches = 0
     k2d.sim2d_launches = k2d.migrate2d_launches = 0
+    kpl.p2g1_launches = kpl.p2g2_launches = kpl.g2p_launches = ke.launches = 0
+
+
+def per_pass_step(config, substeps: int):
+    """make_step(mode="cuda") resolved under MPM_PALLAS_OLD=1: the per-pass
+    kernels A, B, D and E."""
+    os.environ["MPM_PALLAS_OLD"] = "1"
+    step = make_step(config, mode="cuda", substeps=substeps)
+    del os.environ["MPM_PALLAS_OLD"]
+    return step
+
+
+def check_grid_pair(got: Grid, want: Grid, label: str, kname: str) -> float:
+    """Kernel P's bar on a grid pair (decoded when fixed point): within 1e-5
+    of the largest |value|. Returns the max abs error."""
+    def dec(t):
+        return fixed_point.decode(t, 1e7) if t.dtype == torch.int32 else t
+
+    scale = float(dec(want.mom).abs().max())
+    err = max(max_err(dec(got.mom), dec(want.mom)), max_err(dec(got.mass), dec(want.mass)))
+    if not scale > 0 or err > 1e-5 * scale:
+        raise AssertionError(f"kernel {kname} vs plain ({label}): max err {err} > "
+                             f"1e-5 * {scale}")
+    equal = torch.equal(got.mom, want.mom) and torch.equal(got.mass, want.mass)
+    phase(kname, f"{label}: {got.mom.dtype} grid, max|value|={scale:.4g} max abs err={err:.3g} "
+          f"(bar 1e-5 * max), bit-equal={equal}")
+    return err
+
+
+def check_planes(state, config, fluid, label: str) -> dict:
+    """Kernels A, B and D against their plain versions on one state, D from
+    the per-pass grid velocity. Returns the max abs errors by kernel."""
+    g1 = kpl.p2g1_planes(state, config)
+    w1 = kpl.p2g1_plain(state, config)
+    g2 = kpl.p2g2_planes(state, w1.mass, config, fluid)
+    w2 = kpl.p2g2_plain(state, w1.mass, config, fluid)
+    grid = update_grid(Grid(mom=w1.mom + w2, mass=w1.mass), config, fluid)
+    vel, C = kpl.g2p_planes(state, grid, config)
+    wvel, wC = kpl.g2p_plain(state, grid, config)
+    torch.cuda.synchronize()
+    errs = {"p2g1_planes": check_grid_pair(g1, w1, label, "A"),
+            "p2g2_planes": check_grid_pair(Grid(mom=g2, mass=w1.mass),
+                                           Grid(mom=w2, mass=w1.mass), label, "B")}
+    torch.testing.assert_close(vel, wvel, rtol=0, atol=1e-5)
+    torch.testing.assert_close(C, wC, rtol=0, atol=1e-5)
+    errs["g2p_planes"] = max(max_err(vel, wvel), max_err(C, wC))
+    phase("D", f"{label}: vel/C max abs err {errs['g2p_planes']:.3g} (bar 1e-5), bit-equal="
+          f"{bool(torch.equal(vel, wvel) and torch.equal(C, wC))}")
+    return errs
+
+
+def check_e(pre, config, label: str) -> float:
+    """Kernel E against its plain version at F's bars (moves are copies:
+    expected bit-equal); mass equal too."""
+    got = ke.migrate_planes(pre, config)
+    want = ke.migrate_planes_plain(pre, config)
+    torch.cuda.synchronize()
+    if not torch.equal(got.mass, want.mass):
+        raise AssertionError(f"kernel E ({label}): mass differs")
+    return compare_states(got, want, config, label, "E")
+
+
+def perturbed(state, config, seed: int):
+    """A state whose particles move along every axis (uniform +-0.9 cells)
+    and, in the cells of even x, y and z of the middle third, all move up
+    one cell on each axis, so the phases crowd cells past K."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    occ = state.mass > 0
+    d = (torch.rand(tuple(state.pos.shape), generator=gen) * 1.8 - 0.9).to(state.pos.device)
+    hi = float(min(config.grid_res)) - 2.5
+    pos = torch.clamp(state.pos + torch.where(occ, d, 0.0), 2.0, hi)
+    cell = bucketed.cell_coords(config, state.pos.device)
+    lo3, hi3 = config.grid_res[0] // 3, 2 * config.grid_res[0] // 3
+    push = (cell % 2 == 0).all(dim=0) & (cell >= lo3).all(dim=0) & (cell <= hi3).all(dim=0)
+    pos = torch.where(occ & push, torch.floor(state.pos) + 1.5, pos)
+    return state.replace(pos=pos.contiguous())
 
 
 def fluid_share(img, bg_u8, crop) -> float:
@@ -298,8 +381,167 @@ def phase_2d(dev, smi: str, time_pair):
               roofline.sim2d_work(s2, cfg2))
     time_pair("migrate2d", lambda: k2d.migrate2d(s2m, cfg2),
               lambda: k2d.migrate2d_plain(s2m, cfg2), f"bench2d {res2} K=4",
-              roofline.migrate2d_work(s2m, cfg2))
+              roofline.migrate_work(s2m, cfg2))
     return err_sim2d, err_mig2d, launches2d
+
+
+def phase_per_pass_fixed(dev, smi: str, time_pair):
+    """The per-pass path and the fixed-point mode of P and F: phases 19-26.
+    Returns the new kernels' largest errors against their plain versions
+    and their launch counts on their main paths."""
+    # 19. kernels A, B, D and E against their plain versions: fluid_3d at
+    # full width (64^3, K=16, f32) after three plain substeps; E on the
+    # per-pass path's own input and on a perturbed state that moves along
+    # every axis and crowds cells past K
+    sc = fluid_3d(device=dev)
+    cfg = sc.config
+    s3 = bucketed.from_simstate(sc.state, cfg)
+    for _ in range(3):
+        s3 = bucketed.substep(s3, cfg, sc.fluid)
+    label = f"fluid_3d {cfg.grid_res} K=16 f32"
+    errs = check_planes(s3, cfg, sc.fluid, label)
+    vel, C = kpl.g2p_plain(s3, update_grid(kpl.p2g_planes(s3, cfg, sc.fluid), cfg, sc.fluid),
+                           cfg)
+    pre = bucketed.advect_tail(s3, vel, C, cfg, sc.fluid)
+    crowd = perturbed(s3, cfg, 3)
+    errs["migrate_planes"] = max(check_e(pre, cfg, f"{label}, after the tail"),
+                                 check_e(crowd, cfg, f"{label}, perturbed"))
+    if int(ke.migrate_planes_plain(crowd, cfg).deferred) <= 0:
+        raise AssertionError("kernel E's perturbed state deferred no move")
+
+    # 20. fixed-point kernels P and F against their plain versions: S4 (32^3,
+    # K=8) after 5 plain substeps and fluid_3d at 64^3 K=16 with
+    # fixed_point=True (tests/test_fused.py's way) after 3
+    s4 = fluid_3d_fixed_point(device=dev)
+    b4 = make_step(s4.config, mode="bucketed", substeps=5)(
+        bucketed.from_simstate(s4.state, s4.config), s4.fluid)
+    cfgf = cfg.replace(fixed_point=True)
+    sf = bucketed.from_simstate(sc.state, cfgf)
+    for _ in range(3):
+        sf = bucketed.substep(sf, cfgf, sc.fluid)
+    err_pf, err_ff = 0.0, 0.0
+    for st, c, fl, lab in ((b4, s4.config, s4.fluid, f"S4 {s4.config.grid_res} K=8 fixed"),
+                           (sf, cfgf, sc.fluid, f"fluid_3d {cfgf.grid_res} K=16 fixed")):
+        want = kp.p2g_update_plain(st, c, fl)
+        err_pf = max(err_pf, check_grid_pair(kp.p2g_update(st, c, fl), want, lab, "P-fixed"))
+        err_ff = max(err_ff, compare_states(kf.g2p_migrate(st, want, c, fl),
+                                            kf.g2p_migrate_plain(st, want, c, fl), c, lab,
+                                            "F-fixed"))
+    errs["p2g_update_fixed"], errs["g2p_migrate_fixed"] = err_pf, err_ff
+
+    # 21. fixed-point permutation bit-exactness through the kernels: S4 and
+    # a permutation of its particles, 3 substeps each, no deferred move
+    perm = torch.from_numpy(np.random.default_rng(42).permutation(s4.state.num_particles))
+    outs = []
+    for st in (s4.state, s4.state.permute(perm.to(dev))):
+        b = make_step(s4.config, mode="cuda", substeps=3)(
+            bucketed.from_simstate(st, s4.config), s4.fluid)
+        if int(b.deferred) != 0 or int(b.lost) != 0:
+            raise AssertionError(f"S4 permutation run: deferred {int(b.deferred)}")
+        outs.append(bucketed.to_simstate(b))
+    for f in ("ids", "pos", "vel", "C"):
+        if not torch.equal(getattr(outs[0], f), getattr(outs[1], f)):
+            raise AssertionError(f"S4 permuted through the kernels: {f} differs")
+    # the decode of the card equals the CPU's x / mult bit for bit
+    xs = torch.from_numpy(np.random.default_rng(11).integers(
+        -2**31, 2**31 - 1, 1 << 20, dtype=np.int64).astype(np.int32))
+    if not torch.equal(fixed_point.decode(xs.to(dev), 1e7).cpu(), fixed_point.decode(xs, 1e7)):
+        raise AssertionError("fixed_point.decode on the card differs from the CPU's")
+    phase("fixed", f"S4 and a permutation of its {s4.state.num_particles} particles, 3 kernel "
+          "substeps: ids, pos, vel and C bit-equal by id, deferred 0; decode of 2^20 int32 "
+          "values on the card equals the CPU's")
+
+    # 22. the golden anchor through the per-pass substep (bar 5e-4)
+    data = np.load(GOLDEN_3D)
+    gs = fluid_3d(grid_res=16, box=8.0, spacing=0.8, device=dev)
+    gcfg = gs.config.replace(bin_capacity=8)
+    gb = bucketed.from_simstate(gs.state, gcfg)
+    gstep = per_pass_step(gcfg, 1)
+    for i in range(1, 31):
+        gb = gstep(gb, gs.fluid)
+        if i in (10, 30):
+            err = float(np.abs(bucketed.to_simstate(gb).pos.cpu().numpy()
+                               - data[f"pos_s{i}"]).max())
+            if not err <= 5e-4 or int(gb.lost) != 0:
+                raise AssertionError(f"per-pass golden anchor substep {i}: err {err}")
+            phase("golden-per-pass", f"substep {i}: max |pos - fixture| = {err:.3g} (bar 5e-4)")
+
+    # 23. main path: fluid_3d (157,464 particles, 64^3, K=16) through the
+    # per-pass kernels (MPM_PALLAS_OLD=1), 3 fenced windows of 100 substeps
+    n = sc.state.num_particles
+    pstep = per_pass_step(cfg, 10)
+    st = pstep(s3, sc.fluid)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    st, times = fenced_windows(pstep, st, sc.fluid, 10)
+    lp = kernel_launches()
+    if int(st.lost) != 0 or not bool(torch.isfinite(st.pos).all()):
+        raise AssertionError(f"per-pass fluid_3d: lost {int(st.lost)} or non-finite")
+    if (min(lp[k] for k in ("p2g1_planes", "p2g2_planes", "g2p_planes", "migrate_planes")) <= 0
+            or lp["p2g_update"] or lp["g2p_migrate"]):
+        raise AssertionError(f"per-pass fluid_3d did not run on A, B, D and E alone: {lp}")
+    pps = sorted(100 * n / t for t in times)
+    phase("per-pass", f"fluid_3d {n} particles, grid {cfg.grid_res}, K=16 f32, windows "
+          f"{[round(t, 4) for t in times]} s per 100 substeps -> best {pps[-1] / 1e6:.1f}M "
+          f"median {pps[1] / 1e6:.1f}M particle-steps/s; lost=0 deferred={int(st.deferred)} "
+          f"cfl_clamped={int(st.cfl_clamped)} launches={lp} [{smi}]")
+
+    # 24. the per-pass kernels' times at that state, beside their bounds
+    gm = kpl.p2g1_plain(st, cfg).mass
+    grid = update_grid(kpl.p2g_planes(st, cfg, sc.fluid), cfg, sc.fluid)
+    vel, C = kpl.g2p_planes(st, grid, cfg)
+    pre = bucketed.advect_tail(st, vel, C, cfg, sc.fluid)
+    shape = f"fluid_3d {cfg.grid_res} K=16 f32"
+    time_pair("p2g1_planes", lambda: kpl.p2g1_planes(st, cfg), lambda: kpl.p2g1_plain(st, cfg),
+              shape, roofline.p2g1_work(st, cfg))
+    time_pair("p2g2_planes", lambda: kpl.p2g2_planes(st, gm, cfg, sc.fluid),
+              lambda: kpl.p2g2_plain(st, gm, cfg, sc.fluid), shape, roofline.p2g2_work(st, cfg))
+    time_pair("g2p_planes", lambda: kpl.g2p_planes(st, grid, cfg),
+              lambda: kpl.g2p_plain(st, grid, cfg), shape, roofline.g2p_work(st, cfg))
+    time_pair("migrate_planes", lambda: ke.migrate_planes(pre, cfg),
+              lambda: ke.migrate_planes_plain(pre, cfg), shape, roofline.migrate_work(pre, cfg))
+
+    # 25. main path: S4 (4,096 particles, 32^3, K=8, int32 grid) through
+    # make_step(mode="cuda"): 3 fenced windows of 100 substeps
+    n4 = s4.state.num_particles
+    step4 = make_step(s4.config, mode="cuda", substeps=5)
+    b4 = step4(bucketed.from_simstate(s4.state, s4.config), s4.fluid)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    b4, times4 = fenced_windows(step4, b4, s4.fluid, 20)
+    l4 = kernel_launches()
+    if int(b4.lost) != 0 or not bool(torch.isfinite(b4.pos).all()):
+        raise AssertionError(f"S4: lost {int(b4.lost)} or non-finite")
+    if min(l4["p2g_update"], l4["g2p_migrate"]) <= 0 or l4["p2g1_planes"] or l4["migrate_planes"]:
+        raise AssertionError(f"S4 did not run on kernels P and F: {l4}")
+    pps4 = sorted(100 * n4 / t for t in times4)
+    phase("S4", f"fluid_3d_fixed_point {n4} particles, grid {s4.config.grid_res}, K=8, int32 "
+          f"grid, windows {[round(t, 4) for t in times4]} s per 100 substeps -> best "
+          f"{pps4[-1] / 1e6:.2f}M median {pps4[1] / 1e6:.2f}M particle-steps/s; lost=0 "
+          f"deferred={int(b4.deferred)} launches={l4} [{smi}]")
+
+    # 26. fixed-point P and F times at fluid_3d 64^3 K=16 with an int32 grid,
+    # beside the float kernels at the float state of the same substep
+    g3 = kp.p2g_update(s3, cfg, sc.fluid)
+    shape = f"fluid_3d {cfg.grid_res} K=16 f32 (float beside fixed)"
+    time_pair("p2g_update_64", lambda: kp.p2g_update(s3, cfg, sc.fluid),
+              lambda: kp.p2g_update_plain(s3, cfg, sc.fluid), shape,
+              roofline.p2g_update_work(s3, cfg))
+    time_pair("g2p_migrate_64", lambda: kf.g2p_migrate(s3, g3, cfg, sc.fluid),
+              lambda: kf.g2p_migrate_plain(s3, g3, cfg, sc.fluid), shape,
+              roofline.g2p_migrate_work(s3, cfg))
+    gf = kp.p2g_update(sf, cfgf, sc.fluid)
+    shape = f"fluid_3d {cfgf.grid_res} K=16 fixed"
+    time_pair("p2g_update_fixed", lambda: kp.p2g_update(sf, cfgf, sc.fluid),
+              lambda: kp.p2g_update_plain(sf, cfgf, sc.fluid), shape,
+              roofline.p2g_update_work(sf, cfgf))
+    time_pair("g2p_migrate_fixed", lambda: kf.g2p_migrate(sf, gf, cfgf, sc.fluid),
+              lambda: kf.g2p_migrate_plain(sf, gf, cfgf, sc.fluid), shape,
+              roofline.g2p_migrate_work(sf, cfgf))
+    launches = {k: lp[k] for k in ("p2g1_planes", "p2g2_planes", "g2p_planes",
+                                   "migrate_planes")}
+    launches.update(p2g_update_fixed=l4["p2g_update"], g2p_migrate_fixed=l4["g2p_migrate"])
+    return errs, launches
 
 
 def main() -> None:
@@ -573,6 +815,7 @@ def main() -> None:
     del ds
 
     err_sim2d, err_mig2d, launches2d = phase_2d(dev, smi, time_pair)
+    errs_new, launches_new = phase_per_pass_fixed(dev, smi, time_pair)
 
     # 8. CLI
     cmd = [sys.executable, "-m", "mpm_tpu_torch", "run", "fluid_3d", "--frames", "5",
@@ -611,6 +854,21 @@ def main() -> None:
             raise AssertionError(f"2D render CLI failed (rc {res.returncode}, {len(pngs)} "
                                  f"PNGs):\n{res.stdout}\n{res.stderr}")
     phase("cli-render-2d", " | ".join(res.stdout.strip().splitlines()[-3:]))
+    for scene, env, ran in (("fluid_3d", {"MPM_PALLAS_OLD": "1"}, "p2g1_planes"),
+                            ("fluid_3d_fixed_point", {}, "p2g_update")):
+        cmd = [sys.executable, "-m", "mpm_tpu_torch", "run", scene, "--frames", "5"]
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, **env))
+        launched = re.search(rf"{ran}=(\d+)", res.stdout)
+        skipped = re.search(r"p2g_update=(\d+)" if env else r"p2g1_planes=(\d+)", res.stdout)
+        if (res.returncode != 0 or not re.search(r"^lost: 0 ", res.stdout, re.M)
+                or not re.search(r"particle-steps/s on cuda$", res.stdout, re.M)
+                or not launched or int(launched.group(1)) <= 0
+                or not skipped or int(skipped.group(1)) != 0):
+            raise AssertionError(f"run {scene} {env} failed (rc {res.returncode}):\n"
+                                 f"{res.stdout}\n{res.stderr}")
+        phase("cli-" + scene, " ".join(f"{k}={v}" for k, v in env.items()) + " | "
+              + " | ".join(res.stdout.strip().splitlines()[-3:]))
 
     # launches: each kernel's count from the main path that runs it (the
     # pool for P and F, the 640x360 render loop for the emission and BL, the
@@ -618,6 +876,7 @@ def main() -> None:
     launches.update({k: launches360[k] for k in ("g2p_migrate_emit", "blur_depth")})
     launches["extract_cells"] = launches_win["extract_cells"]
     launches.update({k: launches2d[k] for k in ("sim2d", "migrate2d")})
+    launches.update(launches_new)
     src = {"p2g_update": ("mpm_tpu_torch/csrc/p2g_update.cu",
                           "mpm_tpu/ops/pallas/p2g_fused.py:168", err_p),
            "g2p_migrate": ("mpm_tpu_torch/csrc/g2p_migrate.cu",
@@ -631,7 +890,24 @@ def main() -> None:
            "sim2d": ("mpm_tpu_torch/csrc/substep2d.cu",
                      "mpm_tpu/ops/pallas/kernels2d.py:50", err_sim2d),
            "migrate2d": ("mpm_tpu_torch/csrc/substep2d.cu",
-                         "mpm_tpu/ops/pallas/kernels2d.py:231", err_mig2d)}
+                         "mpm_tpu/ops/pallas/kernels2d.py:231", err_mig2d),
+           "p2g1_planes": ("mpm_tpu_torch/csrc/planes.cu",
+                           "mpm_tpu/ops/pallas/bucket_kernels.py:108",
+                           errs_new["p2g1_planes"]),
+           "p2g2_planes": ("mpm_tpu_torch/csrc/planes.cu",
+                           "mpm_tpu/ops/pallas/bucket_kernels.py:154",
+                           errs_new["p2g2_planes"]),
+           "g2p_planes": ("mpm_tpu_torch/csrc/planes.cu",
+                          "mpm_tpu/ops/pallas/bucket_kernels.py:236", errs_new["g2p_planes"]),
+           "migrate_planes": ("mpm_tpu_torch/csrc/planes.cu",
+                              "mpm_tpu/ops/pallas/migrate_kernels.py:115",
+                              errs_new["migrate_planes"]),
+           "p2g_update_fixed": ("mpm_tpu_torch/csrc/p2g_update.cu",
+                                "mpm_tpu/ops/pallas/p2g_fused.py:168",
+                                errs_new["p2g_update_fixed"]),
+           "g2p_migrate_fixed": ("mpm_tpu_torch/csrc/g2p_migrate.cu",
+                                 "mpm_tpu/ops/pallas/fused.py:387",
+                                 errs_new["g2p_migrate_fixed"])}
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [{"name": k, "route": "cuda", "source": s, "replaces": r,
                 "launches": launches[k], "max_abs_err": e,

@@ -1,6 +1,8 @@
 """Command-line entry of the PyTorch port.
 
     python -m mpm_tpu_torch run fluid_3d --frames 60 --window auto
+    MPM_PALLAS_OLD=1 python -m mpm_tpu_torch run fluid_3d
+    python -m mpm_tpu_torch run fluid_3d_fixed_point
     python -m mpm_tpu_torch render fluid_3d --frames 30 --out frames
     python -m mpm_tpu_torch run bench2d
     python -m mpm_tpu_torch render dam_break_2d --out frames
@@ -11,8 +13,10 @@
 counters; `render` also draws every frame (3D scenes with the SSFR
 renderer, 2D scenes with render/render2d.py) and writes it as a PNG. Both
 run on the card (`--device cuda`, the default) and stop when none is
-visible. Modes "auto" and "cuda" run the CUDA kernels; mode "bucketed"
-runs the plain PyTorch engine, and is the only mode of `--device cpu`.
+visible. Modes "auto" and "cuda" run the CUDA kernels (under
+MPM_PALLAS_OLD=1 the per-pass kernels A, B, D and E, as the JAX package's
+knob does); mode "bucketed" runs the plain PyTorch engine, and is the only
+mode of `--device cpu`.
 """
 
 from __future__ import annotations
@@ -112,13 +116,15 @@ def _print_counters(state) -> None:
 
 def kernel_launches() -> dict:
     """Launch counts of the port's CUDA kernels in this process."""
-    from .ops.cuda import g2p_migrate, p2g_update, substep2d
+    from .ops.cuda import g2p_migrate, migrate_planes, p2g_update, planes, substep2d
     from .render import blur_kernel, extract_kernel
 
     return {"p2g_update": p2g_update.launches, "g2p_migrate": g2p_migrate.launches,
             "g2p_migrate_emit": g2p_migrate.emit_launches,
             "sim2d": substep2d.sim2d_launches, "migrate2d": substep2d.migrate2d_launches,
-            "extract_cells": extract_kernel.launches, "blur_depth": blur_kernel.launches}
+            "extract_cells": extract_kernel.launches, "blur_depth": blur_kernel.launches,
+            "p2g1_planes": planes.p2g1_launches, "p2g2_planes": planes.p2g2_launches,
+            "g2p_planes": planes.g2p_launches, "migrate_planes": migrate_planes.launches}
 
 
 def cmd_run(args) -> None:
@@ -156,6 +162,7 @@ def cmd_run(args) -> None:
     if win is not None:
         print(f"window: wy={win.wy} resizes={win.resizes} "
               f"interference={win.interference}")
+    print("kernel launches: " + " ".join(f"{k}={v}" for k, v in kernel_launches().items()))
 
 
 def cmd_render(args) -> None:

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .core.params import FluidParams, SimConfig
-from .core.state import SimState
+from .core.state import Grid, SimState
 from .ops.bucketed import BucketState
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -72,3 +72,9 @@ def bucket_state_from_numpy(pos, vel, C, mass, ids, lost, cfl_clamped,
         mass=_tensor(mass, device), ids=_tensor(ids, device, torch.int32),
         lost=counter(lost), cfl_clamped=counter(cfl_clamped),
         deferred=counter(deferred), ceiling=counter(ceiling))
+
+
+def grid_from_numpy(mom, mass, device) -> Grid:
+    """A Grid from the JAX Grid's arrays (mom [D, C], mass [C]), in their
+    dtypes: float32, or int32 for a fixed-point grid."""
+    return Grid(mom=_tensor(mom, device), mass=_tensor(mass, device))

@@ -41,6 +41,11 @@ class SimState:
     def dim(self) -> int:
         return self.pos.shape[0]
 
+    def permute(self, perm: torch.Tensor) -> "SimState":
+        """The same particles in the order `perm`; ids travel with them."""
+        return SimState(pos=self.pos[..., perm], vel=self.vel[..., perm],
+                        C=self.C[..., perm], mass=self.mass[perm], ids=self.ids[perm])
+
 
 def zero_grid(config: SimConfig, device: torch.device | str) -> Grid:
     """The `clear_grid` pass (clear_grid.glsl:20-29): fresh zeros."""

@@ -1,7 +1,9 @@
 // The bucket-state kernels for D = 2 or 3 axes, shared by kernel P
-// (p2g_update.cu), kernel F (g2p_migrate.cu) and the 2D substep
-// (substep2d.cu), each of which instantiates them for its D and storage
-// type and launches them with its own parameter block.
+// (p2g_update.cu), kernel F (g2p_migrate.cu), the 2D substep
+// (substep2d.cu) and the per-pass kernels A, B, D and E (planes.cu), each
+// of which instantiates them for its D, storage type and grid type (float,
+// or int32 fixed point: GridCoding) and launches them with its own
+// parameter block.
 //
 // What they compute is mpm_tpu/ops/bucketed.py: p2g_bucketed, the grid
 // update (ops/grid.update_grid), g2p_bucketed and migrate. The bucket layout
@@ -22,11 +24,18 @@
 //                   optional) added to the momentum, then the grid update:
 //                   momentum over mass, gravity, slip / stick / friction
 //                   bands against the true domain dres.
+//   p2g_force       the same pass 2 from zero, without the update (B).
 //   g2p_tail        one thread per slot: G2P gather, C = 4B, then the tail
 //                   of bucketed.g2p_bucketed: advect, clamp against dres,
 //                   interactions, wall springs, the CFL clamp and its count;
 //                   empty slots parked at the cell centre. vel and C round
 //                   to the storage type only at the store.
+//   g2p_vc          the same gather, vel and C = 4B only, zero at empty
+//                   slots (D).
+// The two gathers are device functions (p2g_force_gather, g2p_gather)
+// shared by their two users, so one source keeps the rounding. A
+// fixed-point grid encodes each slot's contribution (bucketed._encode) and
+// decodes where the plain version decodes.
 //   migrate_reject  one thread per source cell, per axis phase: the
 //                   conservative rule occ0(dest) + i < K, where a
 //                   left-mover's i also counts the right-movers of cell - 2,
@@ -38,6 +47,8 @@
 //                   written out of place, the rest zeroed (ids -1), any
 //                   excess counted in `lost`.
 #pragma once
+
+#include <type_traits>
 
 #include "mpm_common.cuh"
 
@@ -65,19 +76,31 @@ __device__ __forceinline__ float axis_delta(float pa, int coord) {
   return fminf(fmaxf(floorf(pa) - (float)coord, -1.0f), 1.0f);
 }
 
-// Params: the source's parameter block, with the fields named below.
-template <int D, typename VC, class Params>
+// The fixed-point multiplier of a parameter block; float grids have none.
+template <typename GT, class Params>
+__device__ __forceinline__ float grid_mult(const Params& p) {
+  if constexpr (std::is_same<GT, int>::value)
+    return p.fixed_mult;
+  else
+    return 1.0f;
+}
+
+// Params: the source's parameter block, with the fields named below. GT:
+// the grid's element type, float or int (fixed point, GridCoding).
+template <int D, typename VC, typename GT, class Params>
 __global__ void p2g_mass_mom(const float* __restrict__ pos, const VC* __restrict__ vel,
                              const VC* __restrict__ Cm, const float* __restrict__ mass,
-                             float* __restrict__ gmass, float* __restrict__ gmom, Params p) {
+                             GT* __restrict__ gmass, GT* __restrict__ gmom, Params p) {
+  using G = GridCoding<GT>;
   const GridGeom<D> g = p.g;
+  const float mult = grid_mult<GT>(p);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= g.C) return;
   int x[D];
   cell_coords(g, c, x);
   const size_t KC = (size_t)g.K * g.C;
-  float gm = 0.f, gp[D];
-  for (int a = 0; a < D; ++a) gp[a] = 0.f;
+  GT gm = 0, gp[D];
+  for (int a = 0; a < D; ++a) gp[a] = 0;
 #pragma unroll
   for (int t = 0; t < NTAPS<D>; ++t) {
     // bucket b = c + (t - 1); its particles reach node c with tap 2 - t
@@ -91,8 +114,8 @@ __global__ void p2g_mass_mom(const float* __restrict__ pos, const VC* __restrict
     }
     if (!in_grid(g, bx)) continue;
     const int b = flat(g, bx);
-    float pm = 0.f, pp[D];
-    for (int a = 0; a < D; ++a) pp[a] = 0.f;
+    GT pm = 0, pp[D];
+    for (int a = 0; a < D; ++a) pp[a] = 0;
     for (int k = 0; k < g.K; ++k) {
       const size_t i = (size_t)k * g.C + b;
       const float m = mass[i];
@@ -104,21 +127,24 @@ __global__ void p2g_mass_mom(const float* __restrict__ pos, const VC* __restrict
       for (int a = 0; a < D * D; ++a) Cl[a] = load_vc(Cm, a * KC + i);
       for (int a = 0; a < D; ++a) v[a] = load_vc(vel, a * KC + i);
       const float mass_c = w * m;
-      pm = pm + mass_c;
-      for (int a = 0; a < D; ++a) pp[a] = pp[a] + mass_c * (v[a] + matvec_row<D>(Cl, a, dist));
+      pm = G::add(pm, G::enc(mass_c, mult));
+      for (int a = 0; a < D; ++a)
+        pp[a] = G::add(pp[a], G::enc(mass_c * (v[a] + matvec_row<D>(Cl, a, dist)), mult));
     }
-    gm = gm + pm;
-    for (int a = 0; a < D; ++a) gp[a] = gp[a] + pp[a];
+    gm = G::add(gm, pm);
+    for (int a = 0; a < D; ++a) gp[a] = G::add(gp[a], pp[a]);
   }
   gmass[c] = gm;
   for (int a = 0; a < D; ++a) gmom[a * (size_t)g.C + c] = gp[a];
 }
 
-template <int D, class Params>
+template <int D, typename GT, class Params>
 __global__ void p2g_coef(const float* __restrict__ pos, const float* __restrict__ mass,
-                         const float* __restrict__ gmass, float* __restrict__ a_p,
+                         const GT* __restrict__ gmass, float* __restrict__ a_p,
                          float* __restrict__ b_mu, Params p) {
+  using G = GridCoding<GT>;
   const GridGeom<D> g = p.g;
+  const float mult = grid_mult<GT>(p);
   const size_t KC = (size_t)g.K * g.C;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= KC) return;
@@ -139,7 +165,7 @@ __global__ void p2g_coef(const float* __restrict__ pos, const float* __restrict_
     tap_digits(t, tt);
     for (int a = 0; a < D; ++a) nb[a] = x[a] + tt[a] - 1;
     if (!in_grid(g, nb)) continue;
-    density = density + tap_weight(tt, d) * gmass[flat(g, nb)];
+    density = density + tap_weight(tt, d) * G::dec(gmass[flat(g, nb)], mult);
   }
   const float volume = m / density;
   const float ratio = density / p.rest_density;
@@ -151,20 +177,20 @@ __global__ void p2g_coef(const float* __restrict__ pos, const float* __restrict_
   b_mu[i] = coef * p.mu;
 }
 
-template <int D, typename VC, class Params>
-__global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restrict__ Cm,
-                               const float* __restrict__ mass, const float* __restrict__ a_p,
-                               const float* __restrict__ b_mu, const float* __restrict__ gmass,
-                               const float* __restrict__ gmom, float* __restrict__ gvel,
-                               Params p) {
-  const GridGeom<D> g = p.g;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.C) return;
-  int x[D];
-  cell_coords(g, c, x);
+// Pass 2 at node x: the force contributions (legacy strain optional) of the
+// 3^D buckets around it, each bucket's slots summed in slot order, added
+// to acc tap by tap. Shared by kernel P and the per-pass kernel B.
+template <int D, typename VC, typename GT, class Params>
+__device__ __forceinline__ void p2g_force_gather(const int (&x)[D], const float* __restrict__ pos,
+                                                 const VC* __restrict__ Cm,
+                                                 const float* __restrict__ mass,
+                                                 const float* __restrict__ a_p,
+                                                 const float* __restrict__ b_mu, GT (&acc)[D],
+                                                 const Params& p) {
+  using G = GridCoding<GT>;
+  const GridGeom<D>& g = p.g;
+  const float mult = grid_mult<GT>(p);
   const size_t KC = (size_t)g.K * g.C;
-  float acc[D];
-  for (int a = 0; a < D; ++a) acc[a] = gmom[a * (size_t)g.C + c];
 #pragma unroll
   for (int t = 0; t < NTAPS<D>; ++t) {
     int tt[D], bx[D], r[D];
@@ -177,8 +203,8 @@ __global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restri
     }
     if (!in_grid(g, bx)) continue;
     const int b = flat(g, bx);
-    float part[D];
-    for (int a = 0; a < D; ++a) part[a] = 0.f;
+    GT part[D];
+    for (int a = 0; a < D; ++a) part[a] = 0;
     for (int k = 0; k < g.K; ++k) {
       const size_t i = (size_t)k * g.C + b;
       if (!(mass[i] > 0.f)) continue;
@@ -201,20 +227,40 @@ __global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restri
         const float sd = p.legacy_strain
                              ? matvec_row<D>(S, a, dist)
                              : matvec_row<D>(Cl, a, dist) + matvec_t_row<D>(Cl, a, dist);
-        part[a] = part[a] + w * (ap * dist[a] + bm * sd);
+        part[a] = G::add(part[a], G::enc(w * (ap * dist[a] + bm * sd), mult));
       }
     }
-    for (int a = 0; a < D; ++a) acc[a] = acc[a] + part[a];
+    for (int a = 0; a < D; ++a) acc[a] = G::add(acc[a], part[a]);
   }
+}
+
+// Kernel P's last launch: pass 2 added to the pass-1 momentum, then the
+// grid update. A fixed-point grid is decoded for the update and its
+// velocity encoded again.
+template <int D, typename VC, typename GT, class Params>
+__global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restrict__ Cm,
+                               const float* __restrict__ mass, const float* __restrict__ a_p,
+                               const float* __restrict__ b_mu, const GT* __restrict__ gmass,
+                               const GT* __restrict__ gmom, GT* __restrict__ gvel, Params p) {
+  using G = GridCoding<GT>;
+  const GridGeom<D> g = p.g;
+  const float mult = grid_mult<GT>(p);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= g.C) return;
+  int x[D];
+  cell_coords(g, c, x);
+  GT acc[D];
+  for (int a = 0; a < D; ++a) acc[a] = gmom[a * (size_t)g.C + c];
+  p2g_force_gather<D, VC, GT>(x, pos, Cm, mass, a_p, b_mu, acc, p);
 
   // grid update (ops/grid.update_grid)
-  const float m = gmass[c];
+  const float m = G::dec(gmass[c], mult);
   const bool has_mass = m > 0.f;
   const float safe = has_mass ? m : 1.0f;
   float v[D];
   bool band[D], any_band = false;
   for (int a = 0; a < D; ++a) {
-    v[a] = acc[a] / safe + p.dt * p.gravity[a];
+    v[a] = G::dec(acc[a], mult) / safe + p.dt * p.gravity[a];
     band[a] = x[a] < p.band_lo || x[a] > p.dres[a] - 1 - p.band_hi;
     any_band = any_band || band[a];
   }
@@ -230,13 +276,60 @@ __global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restri
       for (int r = 0; r < D; ++r) v[r] = (r == a) ? 0.f : v[r] * p.friction;
     }
   }
-  for (int a = 0; a < D; ++a) gvel[a * (size_t)g.C + c] = has_mass ? v[a] : 0.f;
+  for (int a = 0; a < D; ++a)
+    gvel[a * (size_t)g.C + c] = has_mass ? G::enc(v[a], mult) : (GT)0;
+}
+
+// The per-pass kernel B's last launch: pass 2 from zero, no grid update.
+template <int D, typename VC, typename GT, class Params>
+__global__ void p2g_force(const float* __restrict__ pos, const VC* __restrict__ Cm,
+                          const float* __restrict__ mass, const float* __restrict__ a_p,
+                          const float* __restrict__ b_mu, GT* __restrict__ gmom2, Params p) {
+  const GridGeom<D> g = p.g;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= g.C) return;
+  int x[D];
+  cell_coords(g, c, x);
+  GT acc[D];
+  for (int a = 0; a < D; ++a) acc[a] = 0;
+  p2g_force_gather<D, VC, GT>(x, pos, Cm, mass, a_p, b_mu, acc, p);
+  for (int a = 0; a < D; ++a) gmom2[a * (size_t)g.C + c] = acc[a];
+}
+
+// G2P at a slot of cell x, at offset d from the cell centre: the grid
+// velocities of the 3^D nodes around it summed in tap order into vel and
+// B. Shared by kernel F's tail and the per-pass kernel D.
+template <int D, typename GT>
+__device__ __forceinline__ void g2p_gather(const GridGeom<D>& g, const int (&x)[D],
+                                           const float (&d)[D], const GT* __restrict__ gvel,
+                                           float mult, float (&vel)[D], float (&B)[D * D]) {
+  using G = GridCoding<GT>;
+  for (int a = 0; a < D; ++a) vel[a] = 0.f;
+  for (int a = 0; a < D * D; ++a) B[a] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NTAPS<D>; ++t) {
+    int tt[D], nb[D];
+    float dist[D];
+    tap_digits(t, tt);
+    for (int a = 0; a < D; ++a) {
+      nb[a] = x[a] + tt[a] - 1;
+      dist[a] = (float)(tt[a] - 1) - d[a];
+    }
+    if (!in_grid(g, nb)) continue;
+    const int n = flat(g, nb);
+    const float w = tap_weight(tt, d);
+    for (int a = 0; a < D; ++a) {
+      const float wv = w * G::dec(gvel[a * (size_t)g.C + n], mult);
+      vel[a] = vel[a] + wv;
+      for (int b = 0; b < D; ++b) B[a * D + b] = B[a * D + b] + wv * dist[b];
+    }
+  }
 }
 
 // cfl: the cfl_clamped counter, added to.
-template <int D, typename VC, class Params>
+template <int D, typename VC, typename GT, class Params>
 __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict__ mass,
-                         const float* __restrict__ gvel, float* __restrict__ pos_out,
+                         const GT* __restrict__ gvel, float* __restrict__ pos_out,
                          VC* __restrict__ vel_out, VC* __restrict__ C_out,
                          int* __restrict__ cfl, Params p) {
   const GridGeom<D> g = p.g;
@@ -256,29 +349,8 @@ __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict_
     return;
   }
   float d[D], vel[D], B[D * D];
-  for (int a = 0; a < D; ++a) {
-    d[a] = pos[a * KC + i] - center[a];
-    vel[a] = 0.f;
-  }
-  for (int a = 0; a < D * D; ++a) B[a] = 0.f;
-#pragma unroll
-  for (int t = 0; t < NTAPS<D>; ++t) {
-    int tt[D], nb[D];
-    float dist[D];
-    tap_digits(t, tt);
-    for (int a = 0; a < D; ++a) {
-      nb[a] = x[a] + tt[a] - 1;
-      dist[a] = (float)(tt[a] - 1) - d[a];
-    }
-    if (!in_grid(g, nb)) continue;
-    const int n = flat(g, nb);
-    const float w = tap_weight(tt, d);
-    for (int a = 0; a < D; ++a) {
-      const float wv = w * gvel[a * (size_t)g.C + n];
-      vel[a] = vel[a] + wv;
-      for (int b = 0; b < D; ++b) B[a * D + b] = B[a * D + b] + wv * dist[b];
-    }
-  }
+  for (int a = 0; a < D; ++a) d[a] = pos[a * KC + i] - center[a];
+  g2p_gather<D, GT>(g, x, d, gvel, grid_mult<GT>(p), vel, B);
 
   float ps[D];
   for (int a = 0; a < D; ++a) {
@@ -323,6 +395,30 @@ __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict_
   }
   for (int a = 0; a < D * D; ++a) store_vc(C_out, a * KC + i, 4.0f * B[a]);
   if (moved) atomicAdd(cfl, 1);
+}
+
+// The per-pass kernel D: G2P velocity and C = 4B, zero at empty slots, no
+// tail.
+template <int D, typename VC, typename GT, class Params>
+__global__ void g2p_vc(const float* __restrict__ pos, const float* __restrict__ mass,
+                       const GT* __restrict__ gvel, VC* __restrict__ vel_out,
+                       VC* __restrict__ C_out, Params p) {
+  const GridGeom<D> g = p.g;
+  const size_t KC = (size_t)g.K * g.C;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= KC) return;
+  if (!(mass[i] > 0.f)) {
+    for (int a = 0; a < D; ++a) store_vc(vel_out, a * KC + i, 0.f);
+    for (int a = 0; a < D * D; ++a) store_vc(C_out, a * KC + i, 0.f);
+    return;
+  }
+  int x[D];
+  cell_coords(g, (int)(i % g.C), x);
+  float d[D], vel[D], B[D * D];
+  for (int a = 0; a < D; ++a) d[a] = pos[a * KC + i] - ((float)x[a] + 0.5f);
+  g2p_gather<D, GT>(g, x, d, gvel, grid_mult<GT>(p), vel, B);
+  for (int a = 0; a < D; ++a) store_vc(vel_out, a * KC + i, vel[a]);
+  for (int a = 0; a < D * D; ++a) store_vc(C_out, a * KC + i, 4.0f * B[a]);
 }
 
 // bucketed.reject_overflow for the cells of one axis phase. ceil_band_y >=
@@ -437,30 +533,32 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
 constexpr int THREADS = 256;
 
 // Kernel P's chain on `stream`: pos, vel, C and mass in; gmass [C] and gvel
-// [D, C] out; gmom [D, C], a_p and b_mu [K, C] are scratch.
-template <int D, typename VC, class Params>
+// [D, C] out (GT float, or int for a fixed-point grid); gmom [D, C], a_p and
+// b_mu [K, C] are scratch.
+template <int D, typename VC, typename GT, class Params>
 cudaError_t launch_p2g(const Params& p, const float* pos, const VC* vel, const VC* Cm,
-                       const float* mass, float* gmass, float* gmom, float* a_p, float* b_mu,
-                       float* gvel, cudaStream_t stream) {
+                       const float* mass, GT* gmass, GT* gmom, float* a_p, float* b_mu,
+                       GT* gvel, cudaStream_t stream) {
   const size_t KC = (size_t)p.g.K * p.g.C;
-  p2g_mass_mom<D, VC><<<blocks_for(p.g.C, THREADS), THREADS, 0, stream>>>(
+  p2g_mass_mom<D, VC, GT><<<blocks_for(p.g.C, THREADS), THREADS, 0, stream>>>(
       pos, vel, Cm, mass, gmass, gmom, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  p2g_coef<D><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(pos, mass, gmass, a_p, b_mu, p);
+  p2g_coef<D, GT><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(pos, mass, gmass, a_p, b_mu,
+                                                                   p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  p2g_force_grid<D, VC><<<blocks_for(p.g.C, THREADS), THREADS, 0, stream>>>(
+  p2g_force_grid<D, VC, GT><<<blocks_for(p.g.C, THREADS), THREADS, 0, stream>>>(
       pos, Cm, mass, a_p, b_mu, gmass, gmom, gvel, p);
   return cudaGetLastError();
 }
 
-template <int D, typename VC, class Params>
+template <int D, typename VC, typename GT, class Params>
 cudaError_t launch_g2p_tail(const Params& p, const float* pos, const float* mass,
-                            const float* gvel, float* pos_out, VC* vel_out, VC* C_out,
-                            int* cfl, cudaStream_t stream) {
+                            const GT* gvel, float* pos_out, VC* vel_out, VC* C_out, int* cfl,
+                            cudaStream_t stream) {
   const size_t KC = (size_t)p.g.K * p.g.C;
-  g2p_tail<D, VC><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(
+  g2p_tail<D, VC, GT><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(
       pos, mass, gvel, pos_out, vel_out, C_out, cfl, p);
   return cudaGetLastError();
 }

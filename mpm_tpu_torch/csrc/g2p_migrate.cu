@@ -34,7 +34,8 @@
 //               re-read is the same ~40 MB at the pool window (tens of us),
 //               so a separate launch is kept.
 // The TPU kernel's plane sweep, rings, packed bf16 pairs and zero-mover
-// gates do not carry over.
+// gates do not carry over. In fixed-point mode (fused.py:508-515) the grid
+// velocity is int32 and the gather decodes each node as it reads it.
 
 #include "bucket_kernels.cuh"
 #include "extract_cells.cuh"
@@ -51,13 +52,14 @@ struct G2PParams {
   float dt;
   float clamp_lo, clamp_hi_offset;
   float wall_min, wall_max_offset, wall_stiffness;
+  float fixed_mult;  // fixed-point multiplier (read for an int32 grid only)
   float inter[mpm::MAX_INTER * mpm::INTER_VALS<3>];
 };
 
 enum { CNT_LOST = 0, CNT_CFL = 1, CNT_DEFERRED = 2, CNT_CEILING = 3 };
 
-template <typename VC, typename RAW>
-cudaError_t launch(const G2PParams& p, mpm::StateBuf<RAW> in, const float* gvel,
+template <typename VC, typename RAW, typename GT>
+cudaError_t launch(const G2PParams& p, mpm::StateBuf<RAW> in, const GT* gvel,
                    mpm::StateBuf<RAW> A, mpm::StateBuf<RAW> B, float* R, int* cnt,
                    const mpm::RenderScals* rs, float* splats, cudaStream_t stream) {
   cudaError_t err = mpm::launch_g2p_tail<3>(p, in.pos, in.mass, gvel, A.pos, (VC*)A.vel,
@@ -80,16 +82,17 @@ extern "C" {
 int g2p_migrate_params_size() { return (int)sizeof(G2PParams); }
 int g2p_migrate_max_interactions() { return mpm::MAX_INTER; }
 
-// Input state (pos, vel, C, mass, ids) and grid velocity gvel [3, C]. A and
+// Input state (pos, vel, C, mass, ids) and grid velocity gvel [3, C],
+// float32, or int32 fixed point when `fixed` (decoded as it is read). A and
 // B are two full state buffers; the result is left in B. R is a [K, C]
 // scratch row. cnt [4] int32 = lost, cfl_clamped, deferred, ceiling, added to.
 // splats [5, C] f32, or null for no emission; scals: 16 host floats
 // (mpm::RenderScals), read only when splats is not null.
 int g2p_migrate(const void* params, const float* pos, const void* vel, const void* Cm,
-                const float* mass, const int* ids, const float* gvel, float* a_pos,
+                const float* mass, const int* ids, const void* gvel, float* a_pos,
                 void* a_vel, void* a_C, float* a_mass, int* a_ids, float* b_pos, void* b_vel,
                 void* b_C, float* b_mass, int* b_ids, float* R, int* cnt, int vc_bf16,
-                const float* scals, float* splats, void* stream) {
+                int fixed, const float* scals, float* splats, void* stream) {
   const G2PParams& p = *(const G2PParams*)params;
   mpm::RenderScals rs;
   if (splats != nullptr)
@@ -101,13 +104,15 @@ int g2p_migrate(const void* params, const float* pos, const void* vel, const voi
     mpm::StateBuf<R16> in = {(float*)pos, (R16*)vel, (R16*)Cm, (float*)mass, (int*)ids};
     mpm::StateBuf<R16> A = {a_pos, (R16*)a_vel, (R16*)a_C, a_mass, a_ids};
     mpm::StateBuf<R16> B = {b_pos, (R16*)b_vel, (R16*)b_C, b_mass, b_ids};
-    err = launch<__nv_bfloat16>(p, in, gvel, A, B, R, cnt, &rs, splats, s);
+    err = fixed ? launch<__nv_bfloat16>(p, in, (const int*)gvel, A, B, R, cnt, &rs, splats, s)
+                : launch<__nv_bfloat16>(p, in, (const float*)gvel, A, B, R, cnt, &rs, splats, s);
   } else {
     using R32 = uint32_t;
     mpm::StateBuf<R32> in = {(float*)pos, (R32*)vel, (R32*)Cm, (float*)mass, (int*)ids};
     mpm::StateBuf<R32> A = {a_pos, (R32*)a_vel, (R32*)a_C, a_mass, a_ids};
     mpm::StateBuf<R32> B = {b_pos, (R32*)b_vel, (R32*)b_C, b_mass, b_ids};
-    err = launch<float>(p, in, gvel, A, B, R, cnt, &rs, splats, s);
+    err = fixed ? launch<float>(p, in, (const int*)gvel, A, B, R, cnt, &rs, splats, s)
+                : launch<float>(p, in, (const float*)gvel, A, B, R, cnt, &rs, splats, s);
   }
   return (int)err;
 }

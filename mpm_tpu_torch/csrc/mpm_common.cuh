@@ -137,6 +137,31 @@ __device__ __forceinline__ void store_vc(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);  // rounds once, at the store (.astype(vc_dtype))
 }
 
+// Grid accumulator codings (ops/fixed_point.py). FloatGrid sums float32
+// contributions; FixedGrid encodes each slot's contribution as
+// trunc(x * mult) in int32 and sums integers, which wrap as XLA's int32
+// sums do: they are added as uint32, since signed overflow is undefined in
+// C++. dec is int32 -> float32, then an IEEE division by mult.
+struct FloatGrid {
+  using T = float;
+  __device__ static float enc(float x, float) { return x; }
+  __device__ static float dec(float x, float) { return x; }
+  __device__ static float add(float a, float b) { return a + b; }
+};
+struct FixedGrid {
+  using T = int;
+  __device__ static int enc(float x, float mult) { return (int)truncf(x * mult); }
+  __device__ static float dec(int x, float mult) { return (float)x / mult; }
+  __device__ static int add(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
+};
+// The coding of a grid whose elements are GT (float or int).
+template <typename GT>
+struct GridCoding;
+template <>
+struct GridCoding<float> : FloatGrid {};
+template <>
+struct GridCoding<int> : FixedGrid {};
+
 inline unsigned blocks_for(size_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }

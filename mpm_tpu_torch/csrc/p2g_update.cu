@@ -23,28 +23,28 @@
 // 4-byte mass read. The TPU kernel's plane sweeps and VMEM rings do not
 // carry over. Three launches, bucket_kernels.cuh's p2g_mass_mom, p2g_coef
 // and p2g_force_grid for D = 3. Output: grid velocity [3, C] and grid mass
-// [C], float32.
+// [C], float32 or int32. In fixed-point mode (the S4 scene) the grid is
+// int32: each slot's contribution is encoded and summed as integers, the
+// density and the grid update decode, and the grid velocity is encoded
+// again (p2g_fused.py:91-100, 286-290, 368-405).
 
-#include "bucket_kernels.cuh"
+#include "p2g_params.cuh"
 
 namespace {
 
-struct P2GParams {
-  mpm::Geom g;
-  int dres[3];          // true domain (domain_res, or grid_res)
-  int bc;               // 0 slip, 1 stick, 2 friction
-  int band_lo, band_hi;
-  int eos_pow_n;        // > 0: integer exponent unrolled (stress.pow_static)
-  int legacy_strain;
-  float eos_pow_f;      // exponent for powf when eos_pow_n == 0
-  float dt;
-  float gravity[3];
-  float rest_density;
-  float mu;             // dynamic viscosity
-  float eos_k;
-  float pressure_floor;
-  float friction;
-};
+// Kernel P for grid element type GT (float, or int for fixed point).
+template <typename GT>
+cudaError_t launch(const mpm::P2GParams& p, const float* pos, const void* vel, const void* Cm,
+                   const float* mass, void* gmass, void* gmom, float* a_p, float* b_mu,
+                   void* gvel, int vc_bf16, cudaStream_t s) {
+  using BF = __nv_bfloat16;
+  GT *gm = (GT*)gmass, *gp = (GT*)gmom, *gv = (GT*)gvel;
+  if (vc_bf16)
+    return mpm::launch_p2g<3>(p, pos, (const BF*)vel, (const BF*)Cm, mass, gm, gp, a_p, b_mu, gv,
+                              s);
+  return mpm::launch_p2g<3>(p, pos, (const float*)vel, (const float*)Cm, mass, gm, gp, a_p, b_mu,
+                            gv, s);
+}
 
 }  // namespace
 
@@ -52,21 +52,19 @@ extern "C" {
 
 // Parameter block size, checked by the Python wrapper against its ctypes
 // mirror of P2GParams.
-int p2g_update_params_size() { return (int)sizeof(P2GParams); }
+int p2g_update_params_size() { return (int)sizeof(mpm::P2GParams); }
 
-// vc_bf16: vel and C are stored as bfloat16 (else float32). Scratch: gmom
-// [3, C], a_p [K, C], b_mu [K, C]. Outputs: gmass [C], gvel [3, C].
+// vc_bf16: vel and C are stored as bfloat16 (else float32). fixed: the grid
+// is int32 fixed point (gmass, gmom and gvel int32; else float32). Scratch:
+// gmom [3, C], a_p [K, C], b_mu [K, C]. Outputs: gmass [C], gvel [3, C].
 int p2g_update(const void* params, const float* pos, const void* vel, const void* Cm,
-               const float* mass, float* gmass, float* gmom, float* a_p, float* b_mu,
-               float* gvel, int vc_bf16, void* stream) {
-  const P2GParams& p = *(const P2GParams*)params;
+               const float* mass, void* gmass, void* gmom, float* a_p, float* b_mu, void* gvel,
+               int vc_bf16, int fixed, void* stream) {
+  const mpm::P2GParams& p = *(const mpm::P2GParams*)params;
   cudaStream_t s = (cudaStream_t)stream;
-  using BF = __nv_bfloat16;
   cudaError_t err =
-      vc_bf16 ? mpm::launch_p2g<3>(p, pos, (const BF*)vel, (const BF*)Cm, mass, gmass, gmom,
-                                   a_p, b_mu, gvel, s)
-              : mpm::launch_p2g<3>(p, pos, (const float*)vel, (const float*)Cm, mass, gmass,
-                                   gmom, a_p, b_mu, gvel, s);
+      fixed ? launch<int>(p, pos, vel, Cm, mass, gmass, gmom, a_p, b_mu, gvel, vc_bf16, s)
+            : launch<float>(p, pos, vel, Cm, mass, gmass, gmom, a_p, b_mu, gvel, vc_bf16, s);
   return (int)err;
 }
 

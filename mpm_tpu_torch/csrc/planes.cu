@@ -1,0 +1,100 @@
+// The per-pass kernels for Hopper (sm_90a): A, B, D and the migration
+// kernel E, on the 3D bucket layout, float32 storage and grids.
+//
+// Replaces: mpm_tpu/ops/pallas/bucket_kernels.py:_p2g1_kernel (A),
+// _p2g2_kernel (B) and _g2p_kernel (D), called from p2g_pallas and
+// g2p_pallas, and mpm_tpu/ops/pallas/migrate_kernels.py:_intra_core_kernel,
+// _intra_c_kernel, _x_kernel and _x_c_kernel (E, called from
+// migrate_intra_pallas and migrate_x_pallas): the TPU's per-pass substep,
+// bucket_kernels.substep (MPM_PALLAS_OLD=1, and float configs outside the
+// fused kernels' VMEM envelope). The plain PyTorch versions are
+// mpm_tpu_torch/ops/cuda/planes.p2g1_plain, p2g2_plain and g2p_plain and
+// ops/cuda/migrate_planes.migrate_planes_plain.
+//
+// What bounds them on this card: they are kernel P and F cut at the TPU's
+// pass boundaries, so what bounds P and F bounds them. A reads the state of
+// every occupied slot (pos, vel, C: 60 B in float32) through 27-fold cache
+// re-reads and writes the grid mass and momentum (16 B a cell); B reads pos
+// and C again with the grid mass and writes a second momentum; D reads pos
+// and the grid velocity and writes vel and C (48 B a slot, every slot); E
+// reads and writes the whole state three times (68 B a slot a phase). Load
+// throughput from the caches bounds A and B, device memory D and E.
+//
+// The simple design: bucket_kernels.cuh's kernels for D = 3, the gathers
+// shared with P and F, so the rounding is one source's. A is p2g_mass_mom;
+// B is p2g_coef then p2g_force, pass 2 from zero (the sum with A's momentum
+// is the caller's, as the TPU left it to XLA); D is g2p_vc; E is the
+// migrate_reject / migrate_select pair per axis z, y, x. The TPU split E
+// into core and C kernels and blocked the C rows to fit VMEM; here one
+// select moves pos, vel, C, mass and ids together. Plane sweeps, K blocks
+// and halo padding do not carry over: every pass is a gather by one thread
+// per cell or slot.
+
+#include "p2g_params.cuh"
+
+namespace {
+
+using mpm::P2GParams;
+using mpm::THREADS;
+using mpm::blocks_for;
+
+}  // namespace
+
+extern "C" {
+
+int planes_params_size() { return (int)sizeof(P2GParams); }
+
+// A: pos, vel, C and mass in; gmass [C] and gmom [3, C] out.
+int p2g1_planes(const void* params, const float* pos, const float* vel, const float* Cm,
+                const float* mass, float* gmass, float* gmom, void* stream) {
+  const P2GParams& p = *(const P2GParams*)params;
+  mpm::p2g_mass_mom<3, float, float><<<blocks_for(p.g.C, THREADS), THREADS, 0,
+                                       (cudaStream_t)stream>>>(pos, vel, Cm, mass, gmass,
+                                                               gmom, p);
+  return (int)cudaGetLastError();
+}
+
+// B: pos, C, mass and A's gmass in; gmom2 [3, C] (pass 2 from zero) out;
+// a_p and b_mu [K, C] are scratch.
+int p2g2_planes(const void* params, const float* pos, const float* Cm, const float* mass,
+                const float* gmass, float* a_p, float* b_mu, float* gmom2, void* stream) {
+  const P2GParams& p = *(const P2GParams*)params;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t KC = (size_t)p.g.K * p.g.C;
+  mpm::p2g_coef<3, float><<<blocks_for(KC, THREADS), THREADS, 0, s>>>(pos, mass, gmass, a_p,
+                                                                      b_mu, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mpm::p2g_force<3, float, float><<<blocks_for(p.g.C, THREADS), THREADS, 0, s>>>(
+      pos, Cm, mass, a_p, b_mu, gmom2, p);
+  return (int)cudaGetLastError();
+}
+
+// D: pos, mass and the grid velocity gvel [3, C] in; vel [3, K, C] and C
+// [9, K, C] out.
+int g2p_planes(const void* params, const float* pos, const float* mass, const float* gvel,
+               float* vel_out, float* C_out, void* stream) {
+  const P2GParams& p = *(const P2GParams*)params;
+  const size_t KC = (size_t)p.g.K * p.g.C;
+  mpm::g2p_vc<3, float, float><<<blocks_for(KC, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
+      pos, mass, gvel, vel_out, C_out, p);
+  return (int)cudaGetLastError();
+}
+
+// E: the three axis phases z, y, x of bucketed.migrate on an nx x ny x nz
+// grid with K slots a cell: the input state -> A -> B -> A (the result).
+// R is a [K, C] scratch row; cnt [2] int32 = lost, deferred, added to.
+int migrate_planes(int nx, int ny, int nz, int K, const float* pos, const float* vel,
+                   const float* Cm, const float* mass, const int* ids, float* a_pos,
+                   float* a_vel, float* a_C, float* a_mass, int* a_ids, float* b_pos,
+                   float* b_vel, float* b_C, float* b_mass, int* b_ids, float* R, int* cnt,
+                   void* stream) {
+  const mpm::Geom g = {{nx, ny, nz}, K, nx * ny * nz};
+  mpm::StateBuf<float> in = {(float*)pos, (float*)vel, (float*)Cm, (float*)mass, (int*)ids};
+  mpm::StateBuf<float> A = {a_pos, a_vel, a_C, a_mass, a_ids};
+  mpm::StateBuf<float> B = {b_pos, b_vel, b_C, b_mass, b_ids};
+  return (int)mpm::launch_migrate<3>(g, in, A, B, R, cnt, cnt + 1, nullptr, -1,
+                                     (cudaStream_t)stream);
+}
+
+}  // extern "C"

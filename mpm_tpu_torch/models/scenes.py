@@ -150,6 +150,28 @@ def fluid_3d_cpu(grid_res: int = 32, box: float = 16.0, spacing: float = 0.5,
     return Scene("fluid_3d_cpu", config, fluid, make_state(pos, device))
 
 
+def fluid_3d_fixed_point(grid_res: int = 32, box: float = 16.0, spacing: float = 1.0,
+                         device: torch.device | str = "cuda") -> Scene:
+    """S4, the 3D fixed-point atomics variant
+    (MLSMPM3DFluidMultithreadNew.cs:26-64): 32^3 grid, 16^3 box at spacing
+    1.0 -> 4,096 particles, int32 grid with multiplier 1e7, K=8."""
+    pos = box_lattice((grid_res,) * 3, (box,) * 3, spacing)
+    config = SimConfig(
+        grid_res=(grid_res,) * 3,
+        num_particles=pos.shape[0],
+        substeps=5,
+        clamp_lo=1.0,
+        clamp_hi_offset=2.0,
+        wall_min=3.0,
+        wall_max_offset=4.0,
+        wall_stiffness=1.0,
+        fixed_point=True,
+        bin_capacity=8,
+    )
+    fluid = FluidParams.create(dim=3, eos_stiffness=10.0, eos_power=4.0)
+    return Scene("fluid_3d_fixed_point", config, fluid, make_state(pos, device))
+
+
 def fluid_3d(
     grid_res: int = 64,
     box: float = 32.0,
@@ -331,12 +353,13 @@ def _bench3d(n_target: int = 1_000_000, **kw) -> Scene:
     return benchmark_scene(n_target, **kw)
 
 
-# The scenes of mpm_tpu.models.scenes.SCENES; fixed-point waits.
+# The scenes of mpm_tpu.models.scenes.SCENES.
 SCENES = {
     "dam_break_2d": dam_break_2d,
     "fluid_2d_friction": fluid_2d_friction,
     "bench2d": benchmark_scene_2d,
     "fluid_3d_cpu": fluid_3d_cpu,
+    "fluid_3d_fixed_point": fluid_3d_fixed_point,
     "fluid_3d": fluid_3d,
     "bench3d": _bench3d,
     "bench3d_dam": benchmark_dam_break,

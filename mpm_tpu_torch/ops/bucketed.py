@@ -132,13 +132,23 @@ def _decode(x, config: SimConfig):
 # ---------------------------------------------------------------- transfers
 
 
-def p2g_bucketed(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid:
-    """Both P2G passes as dense windowed sums (p2g_1.glsl + p2g_2.glsl)."""
+def _tap_geometry(config: SimConfig, device):
+    """(halo h, cell centres [D, C], taps, their flat offsets, their
+    offsets [D, 1, 1] as floats)."""
+    h = sum(strides(config))
+    center = cell_coords(config, device) + 0.5  # [D, C]
+    taps = bspline.taps(config.dim)
+    ovs = [torch.tensor([float(t[a] - 1) for a in range(config.dim)], device=device)
+           .reshape(config.dim, 1, 1) for t in taps]
+    return h, center, taps, flat_tap_offsets(config), ovs
+
+
+def p2g_pass1(state: BucketState, config: SimConfig) -> Grid:
+    """P2G pass 1 (p2g_1.glsl): grid mass and APIC momentum, each slot's
+    contribution encoded for a fixed-point config."""
     dim, k, c = state.pos.shape
     dev = state.device
-    h = sum(strides(config))
-    center = cell_coords(config, dev) + 0.5  # [D, C]
-
+    h, center, taps, offs, ovs = _tap_geometry(config, dev)
     pos_p = _pad_last(state.pos, h)
     # vel/C may be stored bf16; all arithmetic is float32
     vel_p = _pad_last(state.vel.to(state.pos.dtype), h)
@@ -147,13 +157,6 @@ def p2g_bucketed(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid
 
     grid0 = zero_grid(config, dev)
     gmass, gmom = grid0.mass, grid0.mom
-
-    taps = bspline.taps(dim)
-    offs = flat_tap_offsets(config)
-    ovs = [torch.tensor([float(t[a] - 1) for a in range(dim)], device=dev)
-           .reshape(dim, 1, 1) for t in taps]
-
-    # ---- pass 1: mass + APIC momentum ----
     # node c gathers from bucket b = c + off with the reflected tap 2 - t
     # (the tap set is symmetric); the particle's offset from its own cell
     # center is d = pos - (center[c] + off)
@@ -171,8 +174,16 @@ def p2g_bucketed(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid
         mom_c = mass_c * (V + Cd)
         gmass = gmass + _ksum(_encode(mass_c, config))
         gmom = gmom + _ksum(_encode(mom_c, config))
+    return Grid(mom=gmom, mass=gmass)
 
-    # ---- density gather ----
+
+def force_coefs(state: BucketState, gmass: torch.Tensor, config: SimConfig,
+                fp: FluidParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """The density gather from the pass-1 grid mass, the EOS, and pass 2's
+    force coefficients (a_p, b_mu), each [K, C]."""
+    dim, k, c = state.pos.shape
+    dev = state.device
+    h, center, taps, offs, _ = _tap_geometry(config, dev)
     gmass_pad = _pad_last(gmass, h)
     density = torch.zeros((k, c), dtype=state.pos.dtype, device=dev)
     d_own = state.pos - center[:, None, :]  # [D, K, C] = frac - 0.5
@@ -181,17 +192,26 @@ def p2g_bucketed(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid
         w = bspline.tap_weight(d_own, tap)
         density = density + w * gm[None, :]
 
-    # ---- pass 2: EOS + viscosity force ----
     occ = state.mass > 0
     safe_density = torch.where(occ, density, 1.0)
     volume = torch.where(occ, state.mass / safe_density, 0.0)
     pressure = eos_pressure(safe_density, fp, config.eos_power_static)
     coef = (-4.0 * fp.dt) * volume  # [K, C]
-    a_p = coef * (-pressure)
-    b_mu = coef * fp.dynamic_viscosity
+    return coef * (-pressure), coef * fp.dynamic_viscosity
+
+
+def p2g_pass2(state: BucketState, a_p: torch.Tensor, b_mu: torch.Tensor,
+              gmom: torch.Tensor, config: SimConfig) -> torch.Tensor:
+    """P2G pass 2 (p2g_2.glsl): the EOS and viscosity force momentum added
+    to `gmom` tap by tap, encoded for a fixed-point config."""
+    dim, k, c = state.pos.shape
+    dev = state.device
+    h, center, taps, offs, ovs = _tap_geometry(config, dev)
+    pos_p = _pad_last(state.pos, h)
+    C_p = _pad_last(state.C.to(state.pos.dtype), h)
+    mass_p = _pad_last(state.mass, h)
     a_p_pad = _pad_last(a_p, h)
     b_mu_pad = _pad_last(b_mu, h)
-
     for tap, off, ov in zip(taps, offs, ovs):
         P = _shift(pos_p, h, off, c)
         M = _shift(mass_p, h, off, c)
@@ -211,14 +231,21 @@ def p2g_bucketed(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid
             Sd = bspline.matvec(CB, dist) + bspline.matvec_t(CB, dist)
         mom_c = w * (AP * dist + BM * Sd)
         gmom = gmom + _ksum(_encode(mom_c, config))
+    return gmom
 
-    return Grid(mom=gmom, mass=gmass)
+
+def p2g_bucketed(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid:
+    """Both P2G passes as dense windowed sums (p2g_1.glsl + p2g_2.glsl), pass
+    2 added onto pass 1's momentum."""
+    g1 = p2g_pass1(state, config)
+    a_p, b_mu = force_coefs(state, g1.mass, config, fp)
+    return Grid(mom=p2g_pass2(state, a_p, b_mu, g1.mom, config), mass=g1.mass)
 
 
-def g2p_bucketed(state: BucketState, grid: Grid, config: SimConfig,
-                 fp: FluidParams,
-                 interactions: Sequence[Interaction] = ()) -> BucketState:
-    """Windowed G2P gather and the advection tail (g2p.glsl:52-147)."""
+def g2p_gather(state: BucketState, grid: Grid,
+               config: SimConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The windowed G2P gather (g2p.glsl:73-108): float32 vel [D, K, C] and
+    C = 4B [D, D, K, C], not yet zeroed at empty slots."""
     dim, k, c = state.pos.shape
     dev = state.device
     h = sum(strides(config))
@@ -235,8 +262,18 @@ def g2p_bucketed(state: BucketState, grid: Grid, config: SimConfig,
         wv = w[None] * gv[:, None, :]
         vel = vel + wv
         B = B + wv[:, None] * dist[None]
-    Cmat = 4.0 * B
+    return vel, 4.0 * B
 
+
+def advect_tail(state: BucketState, vel: torch.Tensor, Cmat: torch.Tensor,
+                config: SimConfig, fp: FluidParams,
+                interactions: Sequence[Interaction] = ()) -> BucketState:
+    """The tail after the G2P gather (g2p.glsl:110-147): advect, clamp,
+    interactions, wall springs, the CFL bucket clamp and its count; empty
+    slots parked at the cell centre with zero vel and C, stored in the
+    storage type."""
+    dev = state.device
+    center = cell_coords(config, dev) + 0.5
     pos = state.pos + vel * fp.dt
     res = torch.tensor(config.dres, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
     pos = torch.minimum(torch.clamp(pos, min=config.clamp_lo),
@@ -268,6 +305,14 @@ def g2p_bucketed(state: BucketState, grid: Grid, config: SimConfig,
         C=Cmat.to(config.vc_dtype),
         cfl_clamped=state.cfl_clamped + moved.sum(dtype=torch.int32),
     )
+
+
+def g2p_bucketed(state: BucketState, grid: Grid, config: SimConfig,
+                 fp: FluidParams,
+                 interactions: Sequence[Interaction] = ()) -> BucketState:
+    """Windowed G2P gather and the advection tail (g2p.glsl:52-147)."""
+    vel, Cmat = g2p_gather(state, grid, config)
+    return advect_tail(state, vel, Cmat, config, fp, interactions)
 
 
 # ---------------------------------------------------------------- migration

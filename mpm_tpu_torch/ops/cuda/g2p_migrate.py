@@ -5,7 +5,8 @@ path.
 
 `g2p_migrate(state, grid, config, fp, interactions)` takes the plain
 version for a state on the CPU and launches the kernel for a state on a
-CUDA device; there is no other fallback.
+CUDA device; there is no other fallback. The grid velocity is float32, or
+int32 for a fixed-point config, decoded as the kernel reads it.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ class G2PParams(ctypes.Structure):
         ("dt", ctypes.c_float),
         ("clamp_lo", ctypes.c_float), ("clamp_hi_offset", ctypes.c_float),
         ("wall_min", ctypes.c_float), ("wall_max_offset", ctypes.c_float),
-        ("wall_stiffness", ctypes.c_float),
+        ("wall_stiffness", ctypes.c_float), ("fixed_mult", ctypes.c_float),
         ("inter", ctypes.c_float * (MAX_INTER * _INTER_VALS)),
     ]
 
@@ -78,6 +79,7 @@ def _params(config: SimConfig, fp: FluidParams,
     p.clamp_lo, p.clamp_hi_offset = config.clamp_lo, config.clamp_hi_offset
     p.wall_min, p.wall_max_offset = config.wall_min, config.wall_max_offset
     p.wall_stiffness = config.wall_stiffness
+    p.fixed_mult = config.fixed_point_mult
     vals = [v for it in interactions for v in it.values()]
     p.inter[: len(vals)] = vals
     return p
@@ -87,7 +89,7 @@ def _params(config: SimConfig, fp: FluidParams,
 def _lib() -> ctypes.CDLL:
     lib = build.load("g2p_migrate")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.g2p_migrate.argtypes = [vp] * 19 + [ci, vp, vp, vp]
+    lib.g2p_migrate.argtypes = [vp] * 19 + [ci, ci, vp, vp, vp]
     lib.g2p_migrate.restype = ci
     lib.g2p_migrate_params_size.argtypes = []
     lib.g2p_migrate_params_size.restype = ci
@@ -121,10 +123,10 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
     check_supported(config)
     check_state(state, config)
     gvel = grid.mom
-    if (tuple(gvel.shape) != (3, config.num_cells) or gvel.dtype != torch.float32
+    gt = torch.int32 if config.fixed_point else torch.float32
+    if (tuple(gvel.shape) != (3, config.num_cells) or gvel.dtype != gt
             or gvel.device != dev or not gvel.is_contiguous()):
-        raise ValueError("grid.mom must be a contiguous float32 [3, C] tensor "
-                         f"on {dev}")
+        raise ValueError(f"grid.mom must be a contiguous {gt} [3, C] tensor on {dev}")
 
     def new_state():
         return (torch.empty_like(state.pos), torch.empty_like(state.vel),
@@ -145,7 +147,7 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
             ctypes.byref(params), P(state.pos), P(state.vel), P(state.C),
             P(state.mass), P(state.ids), P(gvel), *[P(t) for t in a],
             *[P(t) for t in b], P(R), P(cnt),
-            int(config.vc_dtype == torch.bfloat16),
+            int(config.vc_dtype == torch.bfloat16), int(config.fixed_point),
             scals_arg(render_scals) if emit_splats else None,
             P(splats) if emit_splats else None, build.stream_of(dev))
     build.check_rc("g2p_migrate", rc)

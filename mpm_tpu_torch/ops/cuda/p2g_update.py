@@ -4,7 +4,8 @@ PyTorch version.
 
 `p2g_update(state, config, fp)` takes the plain version for a state on the
 CPU and launches the kernel for a state on a CUDA device; there is no other
-fallback. Both return Grid(mom=grid velocity [3, C], mass=grid mass [C]).
+fallback. Both return Grid(mom=grid velocity [3, C], mass=grid mass [C]):
+float32, or int32 for a fixed-point config (ops/fixed_point.py).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ _BC = {BC_SLIP: 0, BC_STICK: 1, BC_FRICTION: 2}
 
 
 class P2GParams(ctypes.Structure):
-    """Mirror of P2GParams in csrc/p2g_update.cu."""
+    """Mirror of P2GParams in csrc/p2g_params.cuh."""
 
     _fields_ = [
         ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
@@ -38,6 +39,7 @@ class P2GParams(ctypes.Structure):
         ("gravity", ctypes.c_float * 3), ("rest_density", ctypes.c_float),
         ("mu", ctypes.c_float), ("eos_k", ctypes.c_float),
         ("pressure_floor", ctypes.c_float), ("friction", ctypes.c_float),
+        ("fixed_mult", ctypes.c_float),
     ]
 
 
@@ -56,10 +58,6 @@ def check_supported(config: SimConfig) -> None:
 
 def check_grid(config: SimConfig) -> None:
     """Raise for configs no bucket kernel covers, 3D or 2D."""
-    if config.fixed_point:
-        raise NotImplementedError(
-            "fixed-point grids: the int32 mode of the bucket kernels is still "
-            "to port (ROADMAP.md, queue 2, item 'fixed-point mode of P and F')")
     if config.bc not in _BC:
         raise ValueError(f"unknown bc flavor: {config.bc}")
     if config.clamp_lo < 1.0 or config.clamp_hi_offset <= 1.0:
@@ -90,7 +88,8 @@ def check_state(state: BucketState, config: SimConfig) -> None:
             raise ValueError(f"state.{name} must be contiguous on {dev}")
 
 
-def _params(config: SimConfig, fp: FluidParams) -> P2GParams:
+def params_for(config: SimConfig, fp: FluidParams) -> P2GParams:
+    """The parameter block of kernel P and of the per-pass kernels."""
     p = P2GParams()
     p.nx, p.ny, p.nz = config.grid_res
     p.K, p.C = config.bin_capacity, config.num_cells
@@ -108,6 +107,7 @@ def _params(config: SimConfig, fp: FluidParams) -> P2GParams:
     p.eos_k = float(fp.eos_stiffness)
     p.pressure_floor = float(fp.pressure_floor)
     p.friction = config.friction
+    p.fixed_mult = config.fixed_point_mult
     return p
 
 
@@ -115,7 +115,7 @@ def _params(config: SimConfig, fp: FluidParams) -> P2GParams:
 def _lib() -> ctypes.CDLL:
     lib = build.load("p2g_update")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.p2g_update.argtypes = [vp] * 10 + [ci, vp]
+    lib.p2g_update.argtypes = [vp] * 10 + [ci, ci, vp]
     lib.p2g_update.restype = ci
     lib.p2g_update_params_size.argtypes = []
     lib.p2g_update_params_size.restype = ci
@@ -136,19 +136,21 @@ def p2g_update(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid:
     check_state(state, config)
     k, c = config.bin_capacity, config.num_cells
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    gmass, gmom, gvel = empty(c), empty(3, c), empty(3, c)
+    gt = torch.int32 if config.fixed_point else torch.float32
+    gmass, gmom, gvel = empty(c, dtype=gt), empty(3, c, dtype=gt), empty(3, c, dtype=gt)
     a_p, b_mu = empty(k, c), empty(k, c)
-    params = _params(config, fp)
+    params = params_for(config, fp)
     lib = _lib()
     P = build.ptr
     with torch.cuda.device(dev):
         rc = lib.p2g_update(
             ctypes.byref(params), P(state.pos), P(state.vel), P(state.C),
             P(state.mass), P(gmass), P(gmom), P(a_p), P(b_mu), P(gvel),
-            int(config.vc_dtype == torch.bfloat16), build.stream_of(dev))
+            int(config.vc_dtype == torch.bfloat16), int(config.fixed_point),
+            build.stream_of(dev))
     build.check_rc("p2g_update", rc)
     launches += 1
     return Grid(mom=gvel, mass=gmass)

@@ -74,6 +74,11 @@ def check_supported2d(config: SimConfig) -> None:
         raise NotImplementedError("sim2d and migrate2d are 2D; 3D configs take "
                                   "kernels P and F")
     check_grid(config)
+    if config.fixed_point:
+        raise NotImplementedError(
+            "fixed-point 2D grids are still to port (ROADMAP.md, queue 1, item "
+            "'2D bf16 storage and fixed-point 2D configs'); kernels2d.supported2d "
+            "refuses them too")
     if config.vc_dtype != torch.float32:
         raise NotImplementedError(
             "bf16 vel/C storage in 2D is still to port (ROADMAP.md, queue 1, "

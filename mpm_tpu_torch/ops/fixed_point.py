@@ -15,4 +15,6 @@ def encode(x: torch.Tensor, mult: float) -> torch.Tensor:
 
 
 def decode(x: torch.Tensor, mult: float, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return x.to(dtype) / torch.tensor(mult, dtype=dtype)
+    # the divisor lies on x's device: PyTorch computes a CUDA tensor over a
+    # CPU scalar as a multiply by the reciprocal, which is not x / mult
+    return x.to(dtype) / torch.tensor(mult, dtype=dtype, device=x.device)

@@ -5,9 +5,10 @@ The reference runs `sim_iterations` substeps per rendered frame
 is a Python loop over substeps; there is nothing to compile.
 
 Modes: "bucketed" (plain PyTorch, ops/bucketed.py) and "cuda" (kernels P
-and F for a 3D config, sim2d and migrate2d for a 2D one; ops/cuda/). "auto"
-is "cuda": its kernel wrappers launch the kernels
-for a state on a CUDA device and take their plain versions on the CPU.
+and F for a 3D config, sim2d and migrate2d for a 2D one, the per-pass
+kernels A, B, D and E under MPM_PALLAS_OLD=1; ops/cuda/). "auto" is
+"cuda": its kernel wrappers launch the kernels for a state on a CUDA device
+and take their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def resolve_substep(mode: str) -> SubstepFn:
     if mode in ("auto", "cuda"):
         from .cuda import step as cuda_step
 
-        return cuda_step.substep
+        return cuda_step.resolve()
     raise ValueError(f"unknown step mode: {mode}")
 
 

@@ -56,13 +56,32 @@ def _weight_ops(dim: int) -> int:
     return 12 * dim + 3**dim * (dim - 1)
 
 
+def _p2g1_ops(dim: int) -> int:
+    """Pass 1: 2D^2 + 2D + 2 a tap."""
+    return 3**dim * (2 * dim * dim + 2 * dim + 2)
+
+
+def _coef_ops(dim: int) -> int:
+    """The density gather (2 a tap), the EOS and force coefficients (15)."""
+    return 3**dim * 2 + 15
+
+
+def _p2g2_ops(dim: int, legacy_strain: bool) -> int:
+    """Pass 2: 4D^2 + 4D a tap, or with the legacy strain 2D^2 + 4D a tap
+    and D^2 + D to build it."""
+    if legacy_strain:
+        return (2 * dim * dim + 4 * dim) * 3**dim + dim * dim + dim
+    return (4 * dim * dim + 4 * dim) * 3**dim
+
+
 def _p2g_ops(dim: int, legacy_strain: bool) -> int:
-    """Pass 1 (2D^2 + 2D + 2 a tap), the density gather (2 a tap), the EOS
-    and force coefficients (15) and pass 2 (4D^2 + 4D a tap, or with the
-    legacy strain 2D^2 + 4D a tap and D^2 + D to build it)."""
-    pass2 = (2 * dim * dim + 4 * dim) * 3**dim + dim * dim + dim if legacy_strain \
-        else (4 * dim * dim + 4 * dim) * 3**dim
-    return 3**dim * (2 * dim * dim + 2 * dim + 4) + 15 + pass2
+    return _p2g1_ops(dim) + _coef_ops(dim) + _p2g2_ops(dim, legacy_strain)
+
+
+def _encode_ops(dim: int) -> int:
+    """A fixed-point grid: each slot's tap contributions encoded (a
+    multiply and a truncation each), D + 1 in pass 1 and D in pass 2."""
+    return 3**dim * (2 * dim + 1) * 2
 
 
 def _g2p_ops(dim: int, n_inter: int) -> int:
@@ -89,6 +108,10 @@ def p2g_update_work(state, config) -> tuple[int, int]:
         + 4 * c * (d + 1)
     ops = n * (_weight_ops(d) + _p2g_ops(d, config.legacy_strain)) \
         + _occupied_cells(state) * 4 * d
+    if config.fixed_point:  # int32 grid, 4 B a value as float32; the codings
+        # add the encodes, a decode of each cell's mass and momentum for
+        # the update and of its mass for the density, and the re-encode
+        ops += n * _encode_ops(d) + _occupied_cells(state) * (3 * d + 2)
     return nbytes, ops
 
 
@@ -102,7 +125,9 @@ def g2p_migrate_work(state, config, n_inter: int = 0, emit: bool = False) -> tup
               + _nbytes(state.pos, state.vel, state.C, state.mass, state.ids)
               + (20 * c if emit else 0))
     ops = _weight_ops(d) + _g2p_ops(d, n_inter) + _migrate_ops(d) + (SPLAT_OPS if emit else 0)
-    return nbytes, n * ops
+    # a fixed-point grid velocity (int32, 4 B as float32): one decode a
+    # component of each occupied cell
+    return nbytes, n * ops + (d * _occupied_cells(state) if config.fixed_point else 0)
 
 
 def extract_cells_work(state, splats: torch.Tensor, live_value: float) -> tuple[int, int]:
@@ -141,10 +166,38 @@ def sim2d_work(state, config, n_inter: int = 0) -> tuple[int, int]:
     return nbytes, ops
 
 
-def migrate2d_work(state, config) -> tuple[int, int]:
-    """(bytes, operations) of migrate2d: mass, and pos, vel, C and ids of
-    the occupied slots in (36 B a slot in float32); the state out."""
+def migrate_work(state, config) -> tuple[int, int]:
+    """(bytes, operations) of migrate2d and of kernel E: mass, and pos,
+    vel, C and ids of the occupied slots in (36 B a slot in 2D float32, 64 B
+    in 3D); the state out."""
     n = _occupied(state)
     nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos, state.vel, state.C, state.ids)
               + _nbytes(state.pos, state.vel, state.C, state.mass, state.ids))
-    return nbytes, n * _migrate_ops(2)
+    return nbytes, n * _migrate_ops(config.dim)
+
+
+def p2g1_work(state, config) -> tuple[int, int]:
+    """(bytes, operations) of kernel A: mass, and pos, vel and C of the
+    occupied slots in; grid mass and momentum out."""
+    n, c, d = _occupied(state), config.num_cells, config.dim
+    nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos, state.vel, state.C)
+              + 4 * c * (d + 1))
+    return nbytes, n * (_weight_ops(d) + _p2g1_ops(d))
+
+
+def p2g2_work(state, config) -> tuple[int, int]:
+    """(bytes, operations) of kernel B: mass, and pos and C of the occupied
+    slots, and the grid mass of their cells, in; the pass-2 momentum out."""
+    n, c, d = _occupied(state), config.num_cells, config.dim
+    nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos, state.C)
+              + 4 * _occupied_cells(state) + 4 * d * c)
+    return nbytes, n * (_weight_ops(d) + _coef_ops(d) + _p2g2_ops(d, config.legacy_strain))
+
+
+def g2p_work(state, config) -> tuple[int, int]:
+    """(bytes, operations) of kernel D: mass, and pos of the occupied slots
+    and the grid velocity of their cells, in; vel and C of every slot out."""
+    n, d = _occupied(state), config.dim
+    nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos)
+              + 4 * d * _occupied_cells(state) + _nbytes(state.vel, state.C))
+    return nbytes, n * (_weight_ops(d) + 3**d * (2 * d * d + 2 * d) + d * d)

@@ -267,7 +267,7 @@ def test_roofline_of_the_2d_kernels():
     assert ops == 554 * n + 8 * c
     ms, by = roofline.bound_ms(nbytes, ops)
     assert by == "bytes" and ms == pytest.approx(12_637_184 / 3.35e12 * 1e3)
-    nbytes, ops = roofline.migrate2d_work(state, config)
+    nbytes, ops = roofline.migrate_work(state, config)
     assert nbytes == 44 * k * c + 36 * n == 15_134_336
     assert roofline.bound_ms(nbytes, ops)[1] == "bytes"
 

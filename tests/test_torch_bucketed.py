@@ -234,8 +234,9 @@ def test_cuda_wrappers_take_plain_version_on_cpu():
     assert (kp.launches, kf.launches) == (n_p, n_f)  # no kernel ran
 
 
-@pytest.mark.parametrize("kw", [dict(fixed_point=True), dict(grid_res=(16, 16)),
-                                dict(clamp_lo=0.5)])
+# fixed-point 3D configs run on P and F; fixed-point 2D stays outside
+@pytest.mark.parametrize("kw", [dict(fixed_point=True, grid_res=(16, 16)),
+                                dict(grid_res=(16, 16)), dict(clamp_lo=0.5)])
 def test_kernels_refuse_configs_outside_the_slice(kw):
     with pytest.raises(NotImplementedError):
         kp.check_supported(SimConfig(grid_res=(16, 16, 16)).replace(**kw))

@@ -1,6 +1,7 @@
 """Kernels P, F, X and BL against their plain PyTorch versions on a CUDA
-card, at the small scene of tests/test_fused.py, and the 2D kernels sim2d
-and migrate2d at dam_break_2d's size. Every test needs the card and skips
+card, at the small scene of tests/test_fused.py, P and F also in
+fixed-point mode, the per-pass kernels A, B, D and E there too, and the 2D
+kernels sim2d and migrate2d at dam_break_2d's size. Every test needs the card and skips
 without one. They import no JAX, so on a machine without JAX run them with
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -18,8 +19,11 @@ import torch
 
 from mpm_tpu_torch.models.scenes import dam_break_2d, fluid_2d_friction, fluid_3d
 from mpm_tpu_torch.ops import bucketed
+from mpm_tpu_torch.ops import fixed_point
 from mpm_tpu_torch.ops.cuda import g2p_migrate as kf
+from mpm_tpu_torch.ops.cuda import migrate_planes as ke
 from mpm_tpu_torch.ops.cuda import p2g_update as kp
+from mpm_tpu_torch.ops.cuda import planes
 from mpm_tpu_torch.ops.cuda import substep2d as k2d
 from mpm_tpu_torch.ops.interact import Interaction
 from mpm_tpu_torch.ops.step import make_step
@@ -156,11 +160,123 @@ def test_golden_anchor(dev):
 
 def test_unsupported_configs_raise(dev):
     config, fluid, state = _scene(dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kp.p2g_update(state, config.replace(fixed_point=True), fluid)
+    with pytest.raises(NotImplementedError, match="edge planes"):
+        kp.p2g_update(state, config.replace(clamp_lo=0.5), fluid)
     grid = kp.p2g_update(state, config, fluid)
     with pytest.raises(ValueError, match="render_scals"):
         kf.g2p_migrate(state, grid, config, fluid, emit_splats=True)
+
+
+# ---- fixed-point P and F, and the decode on the card ----------------------
+
+def test_decode_divides_on_the_card(dev):
+    """fixed_point.decode of a CUDA tensor equals x / mult on the CPU bit
+    for bit (a CPU scalar divisor would make it a multiply by 1e-7)."""
+    x = np.random.default_rng(11).integers(-2**31, 2**31 - 1, 100_000, dtype=np.int64)
+    x = torch.from_numpy(x.astype(np.int32))
+    want = fixed_point.decode(x, 1e7)
+    assert torch.equal(fixed_point.decode(x.to(dev), 1e7).cpu(), want)
+    assert torch.equal(want, x.float() / torch.tensor(1e7))
+
+
+def test_kernel_p_and_f_fixed_point_match_plain(dev):
+    """Kernels P and F on an int32 grid: P's grid bit for bit, F's state
+    at F's bars (expected bit-equal)."""
+    config, fluid, state = _scene(dev, fixed_point=True)
+    state = _warm(state, config, fluid)
+    got = kp.p2g_update(state, config, fluid)
+    want = kp.p2g_update_plain(state, config, fluid)
+    assert got.mom.dtype == torch.int32 and got.mass.dtype == torch.int32
+    assert int(want.mom.abs().max()) > 0
+    assert torch.equal(got.mom, want.mom) and torch.equal(got.mass, want.mass)
+    n0 = kf.launches
+    out = kf.g2p_migrate(state, want, config, fluid)
+    torch.cuda.synchronize()
+    assert kf.launches == n0 + 1
+    _assert_states_close(out, kf.g2p_migrate_plain(state, want, config, fluid), False)
+
+
+def test_fixed_point_permutation_bit_exact(dev):
+    """tests/test_fused.py:135-160 through the kernels: three overflow-free
+    substeps of a permuted input give the same particles bit for bit."""
+    sc = fluid_3d(grid_res=16, box=8.0, spacing=0.8, device=dev)
+    config = sc.config.replace(bin_capacity=8, fixed_point=True)
+    perm = torch.from_numpy(np.random.default_rng(42).permutation(sc.state.num_particles))
+    outs = []
+    for st in (sc.state, sc.state.permute(perm.to(dev))):
+        b = make_step(config, mode="cuda", substeps=3)(bucketed.from_simstate(st, config),
+                                                       sc.fluid)
+        assert int(b.deferred) == 0 and int(b.lost) == 0
+        outs.append(bucketed.to_simstate(b))
+    for f in ("ids", "pos", "vel", "C"):
+        assert torch.equal(getattr(outs[0], f), getattr(outs[1], f)), f
+
+
+# ---- the per-pass kernels A, B, D and E -----------------------------------
+
+def test_per_pass_kernels_match_plain(dev):
+    config, fluid, state = _scene(dev)
+    state = _warm(state, config, fluid)
+    n0 = (planes.p2g1_launches, planes.p2g2_launches, planes.g2p_launches)
+    g1 = planes.p2g1_planes(state, config)
+    w1 = planes.p2g1_plain(state, config)
+    assert torch.equal(g1.mass, w1.mass) and torch.equal(g1.mom, w1.mom)
+    g2 = planes.p2g2_planes(state, w1.mass, config, fluid)
+    assert torch.equal(g2, planes.p2g2_plain(state, w1.mass, config, fluid))
+    grid = kp.p2g_update_plain(state, config, fluid)
+    vel, C = planes.g2p_planes(state, grid, config)
+    wvel, wC = planes.g2p_plain(state, grid, config)
+    torch.cuda.synchronize()
+    assert torch.equal(vel, wvel) and torch.equal(C, wC)
+    assert (planes.p2g1_launches, planes.p2g2_launches, planes.g2p_launches) == \
+        tuple(n + 1 for n in n0)
+
+
+def test_kernel_e_matches_plain(dev):
+    """Kernel E on a perturbed state that moves along every axis and
+    crowds cells past K, so some moves are deferred."""
+    config, fluid, state = _scene(dev)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    occ = state.mass > 0
+    d = (torch.rand(state.pos.shape, generator=gen) * 1.8 - 0.9).to(dev)
+    pos = torch.clamp(state.pos + torch.where(occ, d, 0.0), 2.0, 13.5)
+    # cells of even x, y and z in the middle send everything up each axis
+    cell = bucketed.cell_coords(config, dev)
+    push = ((cell % 2 == 0).all(dim=0) & (cell >= 5).all(dim=0) & (cell <= 10).all(dim=0))
+    pos = torch.where(occ & push, torch.floor(state.pos) + 1.5, pos)
+    pre = state.replace(pos=pos.contiguous())
+    n0 = ke.launches
+    got = ke.migrate_planes(pre, config)
+    torch.cuda.synchronize()
+    assert ke.launches == n0 + 1
+    want = ke.migrate_planes_plain(pre, config)
+    assert int(want.deferred) > 0
+    for f in ("pos", "vel", "C", "mass", "ids", "lost", "deferred"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_per_pass_substep_and_env(dev, monkeypatch):
+    """MPM_PALLAS_OLD=1 routes mode="cuda" through A, B, D and E (no P or
+    F), at F's bars against the plain per-pass substep; the golden anchor
+    holds through it."""
+    monkeypatch.setenv("MPM_PALLAS_OLD", "1")
+    config, fluid, state = _scene(dev)
+    n_pf = (kp.launches, kf.launches)
+    n_e = ke.launches
+    got = make_step(config, mode="cuda", substeps=3)(state, fluid)
+    want = state
+    for _ in range(3):
+        want = planes.substep_plain(want, config, fluid)
+    assert (kp.launches, kf.launches) == n_pf and ke.launches == n_e + 3
+    _assert_states_close(got, want, False)
+    data = np.load(GOLDEN_3D)
+    step = make_step(config, mode="cuda", substeps=1)
+    for i in range(1, 31):
+        state = step(state, fluid)
+        if i in (10, 30):
+            s = bucketed.to_simstate(state)
+            np.testing.assert_allclose(s.pos.cpu().numpy(), data[f"pos_s{i}"], atol=5e-4)
+    assert int(state.lost) == 0
 
 
 # ---- 2D kernels: sim2d and migrate2d (tests/test_kernels2d.py's bars) ----

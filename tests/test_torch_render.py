@@ -98,8 +98,12 @@ def test_camera_crop_matches_jax(eye, target):
                 jcamera.crop_for_aabb(jcam, view, (0, 0, 0), (16, 16, 16), margin)
     cam, jcam = _cams(160, 96)
     crop = (8, 16, 48, 128)
-    np.testing.assert_allclose(camera.screen_to_view_dir(cam, crop).numpy(),
-                               np.asarray(jcamera.screen_to_view_dir(jcam, crop)), atol=1e-6)
+    # the JAX rays as one jitted executable, copied out of JAX's buffer: in
+    # the full parallel suite the first eager evaluation of a worker came
+    # back up to 2.5e-4 off on about half the rays, while later calls in the
+    # same worker and the port's serial CPU ops agreed to 1e-7
+    want = np.array(jax.jit(lambda: jcamera.screen_to_view_dir(jcam, crop))())
+    np.testing.assert_allclose(camera.screen_to_view_dir(cam, crop).numpy(), want, atol=1e-6)
 
 
 def test_background_matches_jax():
