@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the kernels from mpm_tpu_torch/csrc (P, F with its splat emission,
-X, BL, the 2D pair sim2d and migrate2d, and the per-pass kernels A, B, D
-and E, one nvcc each, in parallel), holds each against its plain PyTorch
-version at full width (P and F in fixed-point mode too), replays the 3D
-and 2D golden trajectories through the kernels, drives the main paths (the
-1M benchmark pool under the air-window engine; its render loop at 640x360
-and at 1080p on the frozen window, and the windowed render path; the 1M
-dam-break; the 100k 2D benchmark and its frame; fluid_3d through the
-per-pass kernels under MPM_PALLAS_OLD=1; the fixed-point scene S4), runs
-the CLI, and times each kernel beside its plain version and its roofline
-bound. Every main path runs with the launch counts set to 0 just before it
+Builds the kernels from mpm_tpu_torch/csrc (P, F with its splat emission
+and its shard mode, X, BL, the 2D pair sim2d and migrate2d, the per-pass
+kernels A, B, D and E, and the two sharded stages of P, one nvcc each, in
+parallel), holds each against its plain PyTorch version at full width (P
+and F in fixed-point mode too; the shard kernels on every slab of 4),
+replays the 3D and 2D golden trajectories through the kernels, runs the
+sharded demos on 4 slabs of the card, drives the main paths (the 1M
+benchmark pool under the air-window engine; its render loop at 640x360
+and at 1080p on the frozen window, the windowed render path and the
+sharded 640x360 frame on 4 slabs; the 1M dam-break; the 100k 2D benchmark
+and its frame; fluid_3d through the per-pass kernels under
+MPM_PALLAS_OLD=1; the fixed-point scene S4; config 5, 16M particles on
+256^3 under the air window on 4 slabs, beside the same window unsharded),
+runs the CLI (`--shards 1` too), and times each kernel beside its plain
+version and its roofline bound. Every main path runs with the launch counts set to 0 just before it
 and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
@@ -42,12 +46,15 @@ from mpm_tpu_torch.ops import bucketed, fixed_point
 from mpm_tpu_torch.ops.cuda import build
 from mpm_tpu_torch.ops.cuda import g2p_migrate as kf
 from mpm_tpu_torch.ops.cuda import migrate_planes as ke
+from mpm_tpu_torch.ops.cuda import p2g_shard as ks
 from mpm_tpu_torch.ops.cuda import p2g_update as kp
 from mpm_tpu_torch.ops.cuda import planes as kpl
 from mpm_tpu_torch.ops.cuda import substep2d as k2d
 from mpm_tpu_torch.ops.grid import update_grid
 from mpm_tpu_torch.ops.interact import Interaction
 from mpm_tpu_torch.ops.step import make_step
+from mpm_tpu_torch.parallel import domain
+from mpm_tpu_torch.parallel.render import demo_sharded_render, make_sharded_frame_step
 from mpm_tpu_torch.render import (Camera, background_for_view, bucket_frame_2d, default_view,
                                   frame_to_u8, make_full_frame_step, render_2d,
                                   render_frame_buckets, write_png)
@@ -59,12 +66,14 @@ from mpm_tpu_torch.utils import roofline
 from mpm_tpu_torch.utils.render_bench import (N_POOL, frame_windows, pool_window, recipe_360,
                                               recipe_1080, settle)
 from mpm_tpu_torch.utils.profile_2d import WINDOW_CALLS, warm_bench2d
+from mpm_tpu_torch.utils.profile_shard import SLABS, config5_windows
 from mpm_tpu_torch.utils.timing import cuda_time_ms, fenced_windows
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_3D = os.path.join(ROOT, "tests", "golden", "fluid_3d_small_bucketed.npz")
 GOLDEN_2D = os.path.join(ROOT, "tests", "golden", "dam_break_2d_oracle.npz")
-KERNELS = ["p2g_update", "g2p_migrate", "substep2d", "extract_cells", "blur_depth", "planes"]
+KERNELS = ["p2g_update", "g2p_migrate", "substep2d", "extract_cells", "blur_depth", "planes",
+           "p2g_shard"]
 
 
 def phase(name: str, msg: str) -> None:
@@ -188,7 +197,8 @@ def check_bl(depth, cam, label: str) -> float:
 
 
 def reset_launches() -> None:
-    kp.launches = kf.launches = kf.emit_launches = kx.launches = kb.launches = 0
+    kp.launches = kf.launches = kf.emit_launches = kf.shard_launches = 0
+    kx.launches = kb.launches = ks.p2g1_launches = ks.p2g2u_launches = 0
     k2d.sim2d_launches = k2d.migrate2d_launches = 0
     kpl.p2g1_launches = kpl.p2g2_launches = kpl.g2p_launches = ke.launches = 0
 
@@ -202,15 +212,17 @@ def per_pass_step(config, substeps: int):
     return step
 
 
-def check_grid_pair(got: Grid, want: Grid, label: str, kname: str) -> float:
+def check_grid_pair(got: Grid, want: Grid, label: str, kname: str,
+                    allow_zero: bool = False) -> float:
     """Kernel P's bar on a grid pair (decoded when fixed point): within 1e-5
-    of the largest |value|. Returns the max abs error."""
+    of the largest |value|; an all-zero reference only with `allow_zero`
+    (a slab may hold no moving fluid). Returns the max abs error."""
     def dec(t):
         return fixed_point.decode(t, 1e7) if t.dtype == torch.int32 else t
 
     scale = float(dec(want.mom).abs().max())
     err = max(max_err(dec(got.mom), dec(want.mom)), max_err(dec(got.mass), dec(want.mass)))
-    if not scale > 0 or err > 1e-5 * scale:
+    if not (scale > 0 or allow_zero) or err > 1e-5 * scale:
         raise AssertionError(f"kernel {kname} vs plain ({label}): max err {err} > "
                              f"1e-5 * {scale}")
     equal = torch.equal(got.mom, want.mom) and torch.equal(got.mass, want.mass)
@@ -544,6 +556,180 @@ def phase_per_pass_fixed(dev, smi: str, time_pair):
     return errs, launches
 
 
+def shard_inputs(state, config, fluid, n: int = SLABS):
+    """The padded slabs of a whole-grid state on n slabs of its device, their
+    slab config, global offsets and counter gates, and the plain versions'
+    exchanged stage-1 grids and grid velocities (so that each kernel is fed
+    the same inputs as its plain version)."""
+    mesh = domain.SlabMesh.on(state.device, n)
+    loc = config.grid_res[0] // n
+    pc = config.num_cells // config.grid_res[0]
+    padded = domain._exchange_state_halo(domain.shard_bucket_state(state, config, mesh).slabs, pc)
+    cfg = bucketed.slab_config(config, loc + 4)
+    x0s = [a * loc - 2 for a in range(n)]
+    g1 = [ks.p2g1_shard_plain(p, cfg, fluid, x0) for p, x0 in zip(padded, x0s)]
+    gm = domain._exchange_grid([g.mass for g in g1], loc, pc)
+    g1 = [Grid(mom=g.mom, mass=m) for g, m in zip(g1, gm)]
+    gv = domain._exchange_grid([ks.p2g2u_shard_plain(p, g, cfg, fluid, x0)
+                                for p, g, x0 in zip(padded, g1, x0s)], loc, pc)
+    gates = [bucketed.Slab(x0=x0, go=1, c_lo=2, c_hi=loc + 1) for x0 in x0s]
+    return padded, cfg, x0s, g1, [Grid(mom=v, mass=g.mass) for v, g in zip(gv, g1)], gates
+
+
+def check_shard_kernels(state, config, fluid, rs, label: str) -> dict:
+    """The two sharded stages of kernel P and kernel F in shard mode, with
+    and without emission, against their plain versions on every slab of
+    `state` cut into SLABS slabs: grids at kernel P's bar, states at F's
+    (counters included), splats at X's. Returns the max abs errors."""
+    padded, cfg, x0s, g1, gv, gates = shard_inputs(state, config, fluid)
+    errs = {"p2g1_shard": 0.0, "p2g2u_shard": 0.0, "g2p_migrate_shard": 0.0}
+    equal = True
+    for a, (p, x0, g, v, gate) in enumerate(zip(padded, x0s, g1, gv, gates)):
+        lab = f"{label}, slab {a} of {SLABS} ({cfg.grid_res[0]} planes from x={x0})"
+        got1, want1 = ks.p2g1_shard(p, cfg, fluid, x0), ks.p2g1_shard_plain(p, cfg, fluid, x0)
+        got2, want2 = ks.p2g2u_shard(p, g, cfg, fluid, x0), ks.p2g2u_shard_plain(p, g, cfg, fluid,
+                                                                               x0)
+        torch.cuda.synchronize()
+        errs["p2g1_shard"] = max(errs["p2g1_shard"], check_grid_pair(got1, want1, lab, "P1-shard",
+                                                                     allow_zero=True))
+        errs["p2g2u_shard"] = max(errs["p2g2u_shard"], check_grid_pair(
+            Grid(mom=got2, mass=g.mass), Grid(mom=want2, mass=g.mass), lab, "P2U-shard",
+            allow_zero=True))
+        equal = equal and torch.equal(got1.mom, want1.mom) and torch.equal(got1.mass, want1.mass) \
+            and torch.equal(got2, want2)
+        got = kf.g2p_migrate(p, v, cfg, fluid, slab=gate)
+        want = kf.g2p_migrate_plain(p, v, cfg, fluid, slab=gate)
+        torch.cuda.synchronize()
+        errs["g2p_migrate_shard"] = max(errs["g2p_migrate_shard"],
+                                        compare_states(got, want, cfg, lab, "F-shard"))
+        got, splats = kf.g2p_migrate(p, v, cfg, fluid, emit_splats=True, render_scals=rs,
+                                     slab=gate)
+        torch.cuda.synchronize()
+        compare_states(got, want, cfg, f"{lab}, emitting", "F-shard")
+        serr = compare_splats(splats, kx.cell_splats_plain(want.pos, want.vel, want.mass, rs),
+                              f"kernel F shard emission ({lab})")
+        errs["g2p_migrate_shard"] = max(errs["g2p_migrate_shard"], serr)
+        equal = equal and all(torch.equal(getattr(got, f), getattr(want, f))
+                              for f in ("pos", "vel", "C", "mass", "ids"))
+    phase("shard-kernels", f"{label}: every slab within the bars; stages and F bit-equal "
+          f"to their plain versions: {equal}")
+    return errs
+
+
+def run_config5(dev, smi: str, **kw):
+    """Config 5 (BASELINE.md:33: 16M particles on 256^3, sharded): the
+    benchmark pool at full size under the air window (headroom 4, chunks
+    of 10 substeps) on SLABS slabs of one card, beside the unsharded
+    window (utils/profile_shard.config5_windows; `kw` cuts it for a CPU
+    rehearsal). Both settle 150 substeps; the gathered sharded state must
+    equal the unsharded one bit for bit, with the same wy and counters.
+    Then fenced windows of 100 substeps in turns (unsharded, sharded x3,
+    unsharded x2), the launch counts read around the sharded ones. Returns
+    (launches, the gathered state, its config and the fluid)."""
+    sc, win_u, win_s = config5_windows(dev, **kw)
+    n = sc.state.num_particles
+    su, ss = win_u.init(sc.state), win_s.init(sc.state)
+    t0 = time.perf_counter()
+    su = settle(win_u, su, sc.fluid)
+    torch.cuda.synchronize()
+    t_u = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ss = settle(win_s, ss, sc.fluid)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    g = domain.gather_bucket_state(ss)
+    differ = [f for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred",
+                          "ceiling") if not torch.equal(getattr(g, f), getattr(su, f))]
+    if differ or win_s.wy != win_u.wy or win_s.resizes != win_u.resizes:
+        raise AssertionError(f"config 5: the sharded settle differs from the unsharded one in "
+                             f"{differ}; wy {win_s.wy} vs {win_u.wy}")
+    del g
+    phase("config5", f"{n} particles, grid {win_u.true_config.grid_res}, window wy={win_u.wy}, "
+          f"K={win_u.config.bin_capacity} {win_u.config.storage_dtype}, {SLABS} slabs of one "
+          f"card: 150 settle substeps sharded equal the unsharded ones bit for bit (state, "
+          f"wy, resizes {win_u.resizes}, counters lost={int(su.lost)} deferred="
+          f"{int(su.deferred)} cfl_clamped={int(su.cfl_clamped)} ceiling={int(su.ceiling)}); "
+          f"settle {t_u:.2f} s unsharded, {t_s:.2f} s sharded")
+    tu, ts = [], []
+    su, t = fenced_windows(win_u.step, su, sc.fluid, 10, 1)
+    tu += t
+    reset_launches()
+    ss, t = fenced_windows(win_s.step, ss, sc.fluid, 10, 3)
+    ts += t
+    launches = kernel_launches()
+    su, t = fenced_windows(win_u.step, su, sc.fluid, 10, 2)
+    tu += t
+    if int(ss.lost) != 0 or win_s.interference != 0 or win_u.interference != 0:
+        raise AssertionError(f"config 5: lost {int(ss.lost)}, interference "
+                             f"{win_s.interference} sharded, {win_u.interference} unsharded")
+    if min(launches[k] for k in ("p2g1_shard", "p2g2u_shard", "g2p_migrate_shard")) <= 0 \
+            or launches["p2g_update"]:
+        raise AssertionError(f"config 5 did not run on the shard kernels alone: {launches}")
+    if not all(bool(torch.isfinite(s.pos).all()) for s in ss.slabs):
+        raise AssertionError("config 5: non-finite positions")
+    pps = sorted(100 * n / t for t in ts)
+    ratio = sorted(ts)[1] / sorted(tu)[1]
+    phase("config5", f"sharded windows {[round(t, 4) for t in ts]} s per 100 substeps -> "
+          f"{min(ts) * 10:.3f} ms a substep best, {sorted(ts)[1] * 10:.3f} median; best "
+          f"{pps[-1] / 1e6:.1f}M median {pps[1] / 1e6:.1f}M particle-steps/s; unsharded windows "
+          f"{[round(t, 4) for t in tu]} s ({sorted(tu)[1] * 10:.3f} ms a substep median); "
+          f"sharded / unsharded = {ratio:.4f} (medians); lost=0 interference=0 wy={win_s.wy} "
+          f"launches={launches} [{smi}]")
+    shard_launches = {k: launches[k] for k in ("p2g1_shard", "p2g2u_shard", "g2p_migrate_shard")}
+    state = domain.gather_bucket_state(ss)
+    cfg = win_s.config
+    del ss, su
+    return shard_launches, state, cfg, sc.fluid
+
+
+def phase_shard_times(state, config, fluid, time_pair) -> None:
+    """The shard kernels' times on slab 1 of config 5's settled window,
+    beside their plain versions and bounds (utils/roofline.py)."""
+    padded, cfg, x0s, g1, gv, gates = shard_inputs(state, config, fluid)
+    p, x0, g, v, gate = padded[1], x0s[1], g1[1], gv[1], gates[1]
+    shape = f"config 5 slab 1 of {SLABS}: {cfg.grid_res} K={cfg.bin_capacity} bf16"
+    time_pair("p2g1_shard", lambda: ks.p2g1_shard(p, cfg, fluid, x0),
+              lambda: ks.p2g1_shard_plain(p, cfg, fluid, x0), shape,
+              roofline.p2g1_shard_work(p, cfg))
+    time_pair("p2g2u_shard", lambda: ks.p2g2u_shard(p, g, cfg, fluid, x0),
+              lambda: ks.p2g2u_shard_plain(p, g, cfg, fluid, x0), shape,
+              roofline.p2g2u_shard_work(p, cfg))
+    time_pair("g2p_migrate_shard", lambda: kf.g2p_migrate(p, v, cfg, fluid, slab=gate),
+              lambda: kf.g2p_migrate_plain(p, v, cfg, fluid, slab=gate), shape,
+              roofline.g2p_migrate_work(p, cfg))
+
+
+def phase_sharded_render(dev, smi: str, state, cfgw, pool, view) -> None:
+    """One 640x360 sharded frame of the settled pool window on SLABS slabs
+    equal to make_full_frame_step's frame from the same state, then 3
+    windows of 40 timed frames."""
+    rc = recipe_360(pool.config, view)
+    bg = background_for_view(rc, view, dev)
+    subs = pool.config.substeps
+    mesh = domain.SlabMesh.on(dev, SLABS)
+    sframe = make_sharded_frame_step(cfgw, mesh, rc, subs)
+    ss, img = sframe(domain.shard_bucket_state(state, cfgw, mesh), pool.fluid, (), view, bg)
+    ref, want = make_full_frame_step(cfgw, rc, subs)(state, pool.fluid, (), view, bg)
+    g = domain.gather_bucket_state(ss)
+    if not all(torch.equal(getattr(g, f), getattr(ref, f)) for f in ("pos", "vel", "C", "ids")):
+        raise AssertionError("sharded render: the state differs from the single-device frame's")
+    if not torch.equal(img, want):
+        raise AssertionError(f"sharded 640x360 frame differs from the single-device frame in "
+                             f"{int((img != want).any(dim=-1).sum())} pixels")
+    reset_launches()
+    ss, img, times = frame_windows(sframe, ss, pool.fluid, view, bg, 40, 3)
+    launches = kernel_launches()
+    if min(launches[k] for k in ("p2g1_shard", "g2p_migrate_emit", "blur_depth")) <= 0:
+        raise AssertionError(f"sharded render did not launch every kernel: {launches}")
+    if int(ss.ceiling) != 0 or int(ss.lost) != int(state.lost):
+        raise AssertionError("sharded render: particles lost or a ceiling hit")
+    share = fluid_share(img, frame_to_u8(bg[0]), rc.crop)
+    phase("render360-sharded", f"{SLABS} slabs: the first frame equals the single-device frame "
+          f"bit for bit (state too); windows {[round(t, 4) for t in times]} s per 40 frames -> "
+          f"{min(times) / 40 * 1e3:.3f} ms/frame best, {sorted(times)[1] / 40 * 1e3:.3f} median; "
+          f"fluid on {share:.3f} of the crop; launches {launches} [{smi}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -563,6 +749,14 @@ def main() -> None:
     build.build_all(KERNELS)
     phase("build", f"{time.perf_counter() - t0:.1f}s; nvcc per kernel: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in build.build_seconds.items()))
+
+    # sharded demos on SLABS slabs of the card (parallel/domain.py:702-746,
+    # parallel/render.py:190-233): each equals its unsharded run bit for bit
+    domain.demo_sharded_bucket_step(SLABS, dev)
+    demo_sharded_render(SLABS, dev)
+    phase("shard-demo", f"demo_sharded_bucket_step({SLABS}) (f32, windowed, bf16) and "
+          f"demo_sharded_render({SLABS}) (whole and windowed): lost 0, equal to their "
+          "unsharded runs bit for bit")
 
     # 3-4. kernels vs plain: fluid_3d at full width (f32, K=16) after three
     # plain substeps, and the benchmark pool's window (bf16, K=8)
@@ -592,7 +786,16 @@ def main() -> None:
     rs3 = kx.render_scals_for(view3, cam360)
     err_fe = check_f_emit(s3, kp.p2g_update_plain(s3, cfg3, sc.fluid), cfg3, sc.fluid,
                           rs3, f"fluid_3d {cfg3.grid_res} K=16 f32")
-    del s3, sp
+    # the shard kernels on 4 slabs of 16 planes: fluid_3d float and fixed
+    errs_shard = check_shard_kernels(s3, cfg3, sc.fluid, rs3, f"fluid_3d {cfg3.grid_res} K=16 f32")
+    cfgx = cfg3.replace(fixed_point=True)
+    sx = bucketed.from_simstate(sc.state, cfgx)
+    for _ in range(3):
+        sx = bucketed.substep(sx, cfgx, sc.fluid)
+    for k, v in check_shard_kernels(sx, cfgx, sc.fluid, rs3,
+                                    f"fluid_3d {cfgx.grid_res} K=16 fixed").items():
+        errs_shard[k] = max(errs_shard[k], v)
+    del s3, sp, sx
 
     # 5. golden anchor: the 3D bucket-engine fixture through the kernels
     data = np.load(GOLDEN_3D)
@@ -667,6 +870,9 @@ def main() -> None:
                                                     "K=8 bf16"))
     err_fe = max(err_fe, check_f_emit(state, grid, cfgw, pool.fluid, rs,
                                       f"settled pool window {cfgw.grid_res} K=8 bf16"))
+    for k, v in check_shard_kernels(state, cfgw, pool.fluid, rs,
+                                    f"settled pool window {cfgw.grid_res} K=8 bf16").items():
+        errs_shard[k] = max(errs_shard[k], v)
     def emit_plain():
         out = kf.g2p_migrate_plain(state, grid, cfgw, pool.fluid)
         return kx.cell_splats_plain(out.pos, out.vel, out.mass, rs)
@@ -796,6 +1002,7 @@ def main() -> None:
     phase("render-window", f"3 chunks of 10 substeps + a 640x360 frame each: fluid on "
           f"{fluid_share(wimg, frame_to_u8(bg[0]), rc.crop):.3f} of the crop; "
           f"launches {launches_win}")
+    phase_sharded_render(dev, smi, state, win.config, pool, view)
     del state, bl_bufs
 
     # 7. main path: the 1M dam-break, no window
@@ -816,6 +1023,9 @@ def main() -> None:
 
     err_sim2d, err_mig2d, launches2d = phase_2d(dev, smi, time_pair)
     errs_new, launches_new = phase_per_pass_fixed(dev, smi, time_pair)
+    launches_shard, s5, cfg5, fluid5 = run_config5(dev, smi)
+    phase_shard_times(s5, cfg5, fluid5, time_pair)
+    del s5
 
     # 8. CLI
     cmd = [sys.executable, "-m", "mpm_tpu_torch", "run", "fluid_3d", "--frames", "5",
@@ -869,6 +1079,28 @@ def main() -> None:
                                  f"{res.stdout}\n{res.stderr}")
         phase("cli-" + scene, " ".join(f"{k}={v}" for k, v in env.items()) + " | "
               + " | ".join(res.stdout.strip().splitlines()[-3:]))
+    cmd = [sys.executable, "-m", "mpm_tpu_torch", "run", "fluid_3d", "--frames", "5",
+           "--shards", "1", "--window", "auto"]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    shard_launch = re.search(r"p2g1_shard=(\d+)", res.stdout)
+    if (res.returncode != 0 or not re.search(r"^lost: 0 ", res.stdout, re.M)
+            or "mesh: 1 x-slab shard(s) over cuda devices" not in res.stdout
+            or not shard_launch or int(shard_launch.group(1)) <= 0):
+        raise AssertionError(f"run --shards 1 failed (rc {res.returncode}):\n{res.stdout}\n"
+                             f"{res.stderr}")
+    phase("cli-shards", " | ".join(res.stdout.strip().splitlines()[-4:]))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_shards_") as out:
+        cmd = [sys.executable, "-m", "mpm_tpu_torch", "render", "fluid_3d", "--frames", "3",
+               "--shards", "1", "--out", out]
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        emit = re.search(r"g2p_migrate_emit=(\d+)", res.stdout)
+        shard_launch = re.search(r"g2p_migrate_shard=(\d+)", res.stdout)
+        if (res.returncode != 0 or len(pngs) != 3 or not emit or int(emit.group(1)) <= 0
+                or not shard_launch or int(shard_launch.group(1)) <= 0):
+            raise AssertionError(f"render --shards 1 failed (rc {res.returncode}, {len(pngs)} "
+                                 f"PNGs):\n{res.stdout}\n{res.stderr}")
+    phase("cli-render-shards", " | ".join(res.stdout.strip().splitlines()[-4:]))
 
     # launches: each kernel's count from the main path that runs it (the
     # pool for P and F, the 640x360 render loop for the emission and BL, the
@@ -877,6 +1109,7 @@ def main() -> None:
     launches["extract_cells"] = launches_win["extract_cells"]
     launches.update({k: launches2d[k] for k in ("sim2d", "migrate2d")})
     launches.update(launches_new)
+    launches.update(launches_shard)
     src = {"p2g_update": ("mpm_tpu_torch/csrc/p2g_update.cu",
                           "mpm_tpu/ops/pallas/p2g_fused.py:168", err_p),
            "g2p_migrate": ("mpm_tpu_torch/csrc/g2p_migrate.cu",
@@ -907,7 +1140,14 @@ def main() -> None:
                                 errs_new["p2g_update_fixed"]),
            "g2p_migrate_fixed": ("mpm_tpu_torch/csrc/g2p_migrate.cu",
                                  "mpm_tpu/ops/pallas/fused.py:387",
-                                 errs_new["g2p_migrate_fixed"])}
+                                 errs_new["g2p_migrate_fixed"]),
+           "p2g1_shard": ("mpm_tpu_torch/csrc/p2g_shard.cu",
+                          "mpm_tpu/ops/pallas/p2g_fused.py:543", errs_shard["p2g1_shard"]),
+           "p2g2u_shard": ("mpm_tpu_torch/csrc/p2g_shard.cu",
+                           "mpm_tpu/ops/pallas/p2g_fused.py:586", errs_shard["p2g2u_shard"]),
+           "g2p_migrate_shard": ("mpm_tpu_torch/csrc/g2p_migrate.cu",
+                                 "mpm_tpu/ops/pallas/fused.py:387",
+                                 errs_shard["g2p_migrate_shard"])}
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [{"name": k, "route": "cuda", "source": s, "replaces": r,
                 "launches": launches[k], "max_abs_err": e,

@@ -7,6 +7,8 @@
     python -m mpm_tpu_torch run bench2d
     python -m mpm_tpu_torch render dam_break_2d --out frames
     python -m mpm_tpu_torch run fluid_3d_cpu --device cpu --mode bucketed
+    python -m mpm_tpu_torch run fluid_3d --shards 4 --window auto
+    python -m mpm_tpu_torch run fluid_3d_cpu --shards 2 --device cpu --mode bucketed
     python -m mpm_tpu_torch info
 
 `run` steps a scene headless and prints per-run stats and the bucket
@@ -16,7 +18,9 @@ run on the card (`--device cuda`, the default) and stop when none is
 visible. Modes "auto" and "cuda" run the CUDA kernels (under
 MPM_PALLAS_OLD=1 the per-pass kernels A, B, D and E, as the JAX package's
 knob does); mode "bucketed" runs the plain PyTorch engine, and is the only
-mode of `--device cpu`.
+mode of `--device cpu`. `--shards N` runs the x-slab decomposition
+(parallel/domain.py) over the first N visible cards, or N CPU slabs under
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ def _parser() -> argparse.ArgumentParser:
         q.add_argument("--window", default="off", choices=["off", "auto"],
                        help="auto = air-window engine (ops/window.py): arrays "
                        "track the occupied y-range; identical physics (3D only)")
+        q.add_argument("--shards", type=int, default=0,
+                       help="N > 0: x-slab decomposition over the first N visible "
+                       "cards (N CPU slabs with --device cpu); 3D scenes")
     render.add_argument("--out", default="mpm_frames", help="directory of the PNGs")
     render.add_argument("--width", type=int, default=960)
     render.add_argument("--height", type=int, default=540)
@@ -77,20 +84,48 @@ def nvidia_smi_power() -> str:
     return out.stdout.strip() or out.stderr.strip()
 
 
-def build(scene, mode: str, window: str, substeps: int | None):
+def build(scene, mode: str, window: str, substeps: int | None, mesh=None):
     """(step, state, win) for a scene whose state is on its device: the
     air-window engine when window == "auto" and the scene is 3D, else the
-    plain frame step."""
+    plain frame step; over the slab mesh `mesh` when one is given."""
     from .ops import bucketed
     from .ops.step import make_step
     from .ops.window import YWindow
 
     n = substeps or scene.config.substeps
     if window == "auto" and scene.config.dim == 3:
-        win = YWindow(scene.config, mode=mode, substeps=n)
+        win = YWindow(scene.config, mode=mode, substeps=n, mesh=mesh)
         return win.step, win.init(scene.state), win
-    step = make_step(scene.config, mode=mode, substeps=n)
-    return step, bucketed.from_simstate(scene.state, scene.config), None
+    b = bucketed.from_simstate(scene.state, scene.config)
+    if mesh is not None:
+        from .parallel.domain import make_sharded_bucket_step, shard_bucket_state
+
+        return (make_sharded_bucket_step(scene.config, mesh, substeps=n, mode=mode),
+                shard_bucket_state(b, scene.config, mesh), None)
+    return make_step(scene.config, mode=mode, substeps=n), b, None
+
+
+def _mesh(args, scene, device):
+    """The slab mesh of --shards N (mpm_tpu/__main__.py:211-236), or None:
+    the first N visible cards, or N CPU slabs under --device cpu. Refuses 2D
+    scenes and slabs thinner than 2 planes."""
+    from .parallel.domain import SlabMesh
+
+    n = args.shards
+    if not n:
+        return None
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"--shards {n}: only {torch.cuda.device_count()} device(s) visible "
+                         f"(--device cpu --mode bucketed runs {n} CPU slabs)")
+    if scene.config.dim != 3:
+        raise SystemExit("--shards requires a 3D scene on the bucket path")
+    nx = scene.config.grid_res[0]
+    if n < 1 or nx % n or nx // n < 2:
+        raise SystemExit(f"--shards {n} must divide grid x={nx} into slabs of >= 2 planes")
+    devices = ([torch.device("cuda", i) for i in range(n)] if device.type == "cuda"
+               else [device] * n)
+    print(f"mesh: {n} x-slab shard(s) over {device.type} devices")
+    return SlabMesh.of(devices)
 
 
 def _device(args) -> torch.device:
@@ -116,11 +151,13 @@ def _print_counters(state) -> None:
 
 def kernel_launches() -> dict:
     """Launch counts of the port's CUDA kernels in this process."""
-    from .ops.cuda import g2p_migrate, migrate_planes, p2g_update, planes, substep2d
+    from .ops.cuda import g2p_migrate, migrate_planes, p2g_shard, p2g_update, planes, substep2d
     from .render import blur_kernel, extract_kernel
 
     return {"p2g_update": p2g_update.launches, "g2p_migrate": g2p_migrate.launches,
             "g2p_migrate_emit": g2p_migrate.emit_launches,
+            "p2g1_shard": p2g_shard.p2g1_launches, "p2g2u_shard": p2g_shard.p2g2u_launches,
+            "g2p_migrate_shard": g2p_migrate.shard_launches,
             "sim2d": substep2d.sim2d_launches, "migrate2d": substep2d.migrate2d_launches,
             "extract_cells": extract_kernel.launches, "blur_depth": blur_kernel.launches,
             "p2g1_planes": planes.p2g1_launches, "p2g2_planes": planes.p2g2_launches,
@@ -135,7 +172,8 @@ def cmd_run(args) -> None:
     scene = get_scene(args.scene, device=device)
     n = scene.state.num_particles
     substeps = args.substeps or scene.config.substeps
-    step, state, win = build(scene, args.mode, args.window, substeps)
+    mesh = _mesh(args, scene, device)
+    step, state, win = build(scene, args.mode, args.window, substeps, mesh)
     print(f"scene={scene.name} N={n} grid={scene.config.grid_res} "
           f"mode={args.mode} device={device}")
     if win is not None:
@@ -170,7 +208,9 @@ def cmd_render(args) -> None:
     --window auto the air-window engine steps and render_frame_buckets
     draws (kernel X); with --window off, quality cell and a kernel mode,
     make_full_frame_step runs the substeps with kernel F's splat emission
-    and draws from its splats. A 2D scene takes _render_2d_loop. Frames
+    and draws from its splats; with --shards, make_sharded_frame_step
+    composites the slabs' splats (--window off and quality cell only, as
+    mpm_tpu/__main__.py:614-636). A 2D scene takes _render_2d_loop. Frames
     leave the device as u8, and PNG writes overlap the next frames on
     worker threads."""
     from .models.scenes import get_scene
@@ -180,6 +220,13 @@ def cmd_render(args) -> None:
 
     device = _device(args)
     scene = get_scene(args.scene, device=device)
+    mesh = _mesh(args, scene, device)
+    if mesh is not None and args.window == "auto":
+        raise SystemExit("--shards render supports --window off only (the windowed+sharded "
+                         "engine is available via `run`)")
+    if mesh is not None and args.render_quality != "cell":
+        raise SystemExit("--shards render uses the distributed cell-splat composite: "
+                         "requires --render-quality cell")
     if scene.config.dim == 2:
         return _render_2d_loop(args, scene, device)
     n = scene.state.num_particles
@@ -194,13 +241,17 @@ def cmd_render(args) -> None:
             y0, x0, ch, cw = rc.crop
             print(f"fluid crop: {cw}x{ch}+{x0}+{y0} "
                   f"({cw * ch / (cam.width * cam.height):.0%} of frame)")
-    step, state, win = build(scene, args.mode, args.window, substeps)
+    step, state, win = build(scene, args.mode, args.window, substeps, mesh)
     print(f"scene={scene.name} N={n} grid={scene.config.grid_res} mode={args.mode} "
           f"window={args.window} {cam.width}x{cam.height} quality={rc.quality} "
           f"device={device}")
     bg = background_for_view(rc, view, device)
     full_frame = None
-    if args.mode != "bucketed" and win is None and rc.quality == "cell":
+    if mesh is not None:
+        from .parallel.render import make_sharded_frame_step
+
+        full_frame = make_sharded_frame_step(scene.config, mesh, rc, substeps, mode=args.mode)
+    elif args.mode != "bucketed" and win is None and rc.quality == "cell":
         full_frame = make_full_frame_step(scene.config, rc, substeps)
     grid_res = (win.config if win is not None else scene.config).grid_res
 

@@ -17,6 +17,12 @@
 // the position clamps keep every axis's edge planes empty (the wrappers
 // refuse looser clamps).
 //
+// Every kernel also runs on one slab of an x-slab decomposition (a Slab,
+// mpm_common.cuh: the global offset x0 of physical coordinates, a grid go
+// planes wider than the state on each side, and the planes whose counter
+// events count); whole_grid() is the whole grid, and with it each kernel
+// computes what it computed before slabs existed, operation for operation.
+//
 //   p2g_mass_mom    one thread per cell: pass-1 mass and APIC momentum.
 //   p2g_coef        one thread per slot: density gather, EOS, the a_p and
 //                   b_mu force coefficients.
@@ -87,17 +93,22 @@ __device__ __forceinline__ float grid_mult(const Params& p) {
 
 // Params: the source's parameter block, with the fields named below. GT:
 // the grid's element type, float or int (fixed point, GridCoding).
+// One thread per grid node c of grid_geom(p.g, s); x is the node's state
+// coordinate (go planes below its grid plane), so a halo node gathers the
+// state planes within its reach.
 template <int D, typename VC, typename GT, class Params>
 __global__ void p2g_mass_mom(const float* __restrict__ pos, const VC* __restrict__ vel,
                              const VC* __restrict__ Cm, const float* __restrict__ mass,
-                             GT* __restrict__ gmass, GT* __restrict__ gmom, Params p) {
+                             GT* __restrict__ gmass, GT* __restrict__ gmom, Params p, Slab s) {
   using G = GridCoding<GT>;
   const GridGeom<D> g = p.g;
+  const GridGeom<D> gg = grid_geom(g, s);
   const float mult = grid_mult<GT>(p);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.C) return;
+  if (c >= gg.C) return;
   int x[D];
-  cell_coords(g, c, x);
+  cell_coords(gg, c, x);
+  x[0] -= s.go;
   const size_t KC = (size_t)g.K * g.C;
   GT gm = 0, gp[D];
   for (int a = 0; a < D; ++a) gp[a] = 0;
@@ -110,7 +121,7 @@ __global__ void p2g_mass_mom(const float* __restrict__ pos, const VC* __restrict
     for (int a = 0; a < D; ++a) {
       bx[a] = x[a] + tt[a] - 1;
       r[a] = 2 - tt[a];
-      cb[a] = ((float)x[a] + 0.5f) + (float)(tt[a] - 1);
+      cb[a] = (global_coord(s, a, x[a]) + 0.5f) + (float)(tt[a] - 1);
     }
     if (!in_grid(g, bx)) continue;
     const int b = flat(g, bx);
@@ -135,15 +146,17 @@ __global__ void p2g_mass_mom(const float* __restrict__ pos, const VC* __restrict
     for (int a = 0; a < D; ++a) gp[a] = G::add(gp[a], pp[a]);
   }
   gmass[c] = gm;
-  for (int a = 0; a < D; ++a) gmom[a * (size_t)g.C + c] = gp[a];
+  for (int a = 0; a < D; ++a) gmom[a * (size_t)gg.C + c] = gp[a];
 }
 
+// gmass on grid_geom(p.g, s).
 template <int D, typename GT, class Params>
 __global__ void p2g_coef(const float* __restrict__ pos, const float* __restrict__ mass,
                          const GT* __restrict__ gmass, float* __restrict__ a_p,
-                         float* __restrict__ b_mu, Params p) {
+                         float* __restrict__ b_mu, Params p, Slab s) {
   using G = GridCoding<GT>;
   const GridGeom<D> g = p.g;
+  const GridGeom<D> gg = grid_geom(g, s);
   const float mult = grid_mult<GT>(p);
   const size_t KC = (size_t)g.K * g.C;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -157,15 +170,16 @@ __global__ void p2g_coef(const float* __restrict__ pos, const float* __restrict_
   int x[D];
   cell_coords(g, (int)(i % g.C), x);
   float d[D];
-  for (int a = 0; a < D; ++a) d[a] = pos[a * KC + i] - ((float)x[a] + 0.5f);
+  for (int a = 0; a < D; ++a) d[a] = pos[a * KC + i] - (global_coord(s, a, x[a]) + 0.5f);
   float density = 0.f;
 #pragma unroll
   for (int t = 0; t < NTAPS<D>; ++t) {
-    int tt[D], nb[D];
+    int tt[D], nb[D];  // nb: the node on the grid's planes
     tap_digits(t, tt);
     for (int a = 0; a < D; ++a) nb[a] = x[a] + tt[a] - 1;
-    if (!in_grid(g, nb)) continue;
-    density = density + tap_weight(tt, d) * G::dec(gmass[flat(g, nb)], mult);
+    nb[0] += s.go;
+    if (!in_grid(gg, nb)) continue;
+    density = density + tap_weight(tt, d) * G::dec(gmass[flat(gg, nb)], mult);
   }
   const float volume = m / density;
   const float ratio = density / p.rest_density;
@@ -177,16 +191,17 @@ __global__ void p2g_coef(const float* __restrict__ pos, const float* __restrict_
   b_mu[i] = coef * p.mu;
 }
 
-// Pass 2 at node x: the force contributions (legacy strain optional) of the
-// 3^D buckets around it, each bucket's slots summed in slot order, added
-// to acc tap by tap. Shared by kernel P and the per-pass kernel B.
+// Pass 2 at node x (state coordinates): the force contributions (legacy
+// strain optional) of the 3^D buckets around it, each bucket's slots
+// summed in slot order, added to acc tap by tap. Shared by kernel P, its
+// sharded stage 2 and the per-pass kernel B.
 template <int D, typename VC, typename GT, class Params>
 __device__ __forceinline__ void p2g_force_gather(const int (&x)[D], const float* __restrict__ pos,
                                                  const VC* __restrict__ Cm,
                                                  const float* __restrict__ mass,
                                                  const float* __restrict__ a_p,
                                                  const float* __restrict__ b_mu, GT (&acc)[D],
-                                                 const Params& p) {
+                                                 const Params& p, const Slab& s) {
   using G = GridCoding<GT>;
   const GridGeom<D>& g = p.g;
   const float mult = grid_mult<GT>(p);
@@ -199,7 +214,7 @@ __device__ __forceinline__ void p2g_force_gather(const int (&x)[D], const float*
     for (int a = 0; a < D; ++a) {
       bx[a] = x[a] + tt[a] - 1;
       r[a] = 2 - tt[a];
-      cb[a] = ((float)x[a] + 0.5f) + (float)(tt[a] - 1);
+      cb[a] = (global_coord(s, a, x[a]) + 0.5f) + (float)(tt[a] - 1);
     }
     if (!in_grid(g, bx)) continue;
     const int b = flat(g, bx);
@@ -236,22 +251,24 @@ __device__ __forceinline__ void p2g_force_gather(const int (&x)[D], const float*
 
 // Kernel P's last launch: pass 2 added to the pass-1 momentum, then the
 // grid update. A fixed-point grid is decoded for the update and its
-// velocity encoded again.
+// velocity encoded again. One thread per node of grid_geom(p.g, s).
 template <int D, typename VC, typename GT, class Params>
 __global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restrict__ Cm,
                                const float* __restrict__ mass, const float* __restrict__ a_p,
                                const float* __restrict__ b_mu, const GT* __restrict__ gmass,
-                               const GT* __restrict__ gmom, GT* __restrict__ gvel, Params p) {
+                               const GT* __restrict__ gmom, GT* __restrict__ gvel, Params p,
+                               Slab s) {
   using G = GridCoding<GT>;
-  const GridGeom<D> g = p.g;
+  const GridGeom<D> gg = grid_geom(p.g, s);
   const float mult = grid_mult<GT>(p);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.C) return;
+  if (c >= gg.C) return;
   int x[D];
-  cell_coords(g, c, x);
+  cell_coords(gg, c, x);
+  x[0] -= s.go;
   GT acc[D];
-  for (int a = 0; a < D; ++a) acc[a] = gmom[a * (size_t)g.C + c];
-  p2g_force_gather<D, VC, GT>(x, pos, Cm, mass, a_p, b_mu, acc, p);
+  for (int a = 0; a < D; ++a) acc[a] = gmom[a * (size_t)gg.C + c];
+  p2g_force_gather<D, VC, GT>(x, pos, Cm, mass, a_p, b_mu, acc, p, s);
 
   // grid update (ops/grid.update_grid)
   const float m = G::dec(gmass[c], mult);
@@ -261,7 +278,8 @@ __global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restri
   bool band[D], any_band = false;
   for (int a = 0; a < D; ++a) {
     v[a] = G::dec(acc[a], mult) / safe + p.dt * p.gravity[a];
-    band[a] = x[a] < p.band_lo || x[a] > p.dres[a] - 1 - p.band_hi;
+    const int xa = a == 0 ? x[a] + s.x0 : x[a];  // the global index
+    band[a] = xa < p.band_lo || xa > p.dres[a] - 1 - p.band_hi;
     any_band = any_band || band[a];
   }
   if (p.bc == 0) {  // slip
@@ -277,7 +295,7 @@ __global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restri
     }
   }
   for (int a = 0; a < D; ++a)
-    gvel[a * (size_t)g.C + c] = has_mass ? G::enc(v[a], mult) : (GT)0;
+    gvel[a * (size_t)gg.C + c] = has_mass ? G::enc(v[a], mult) : (GT)0;
 }
 
 // The per-pass kernel B's last launch: pass 2 from zero, no grid update.
@@ -292,18 +310,21 @@ __global__ void p2g_force(const float* __restrict__ pos, const VC* __restrict__ 
   cell_coords(g, c, x);
   GT acc[D];
   for (int a = 0; a < D; ++a) acc[a] = 0;
-  p2g_force_gather<D, VC, GT>(x, pos, Cm, mass, a_p, b_mu, acc, p);
+  p2g_force_gather<D, VC, GT>(x, pos, Cm, mass, a_p, b_mu, acc, p, whole_grid());
   for (int a = 0; a < D; ++a) gmom2[a * (size_t)g.C + c] = acc[a];
 }
 
 // G2P at a slot of cell x, at offset d from the cell centre: the grid
 // velocities of the 3^D nodes around it summed in tap order into vel and
-// B. Shared by kernel F's tail and the per-pass kernel D.
+// B. gvel on grid_geom(g, s). Shared by kernel F's tail and the per-pass
+// kernel D.
 template <int D, typename GT>
 __device__ __forceinline__ void g2p_gather(const GridGeom<D>& g, const int (&x)[D],
                                            const float (&d)[D], const GT* __restrict__ gvel,
-                                           float mult, float (&vel)[D], float (&B)[D * D]) {
+                                           float mult, float (&vel)[D], float (&B)[D * D],
+                                           const Slab& s) {
   using G = GridCoding<GT>;
+  const GridGeom<D> gg = grid_geom(g, s);
   for (int a = 0; a < D; ++a) vel[a] = 0.f;
   for (int a = 0; a < D * D; ++a) B[a] = 0.f;
 #pragma unroll
@@ -315,23 +336,24 @@ __device__ __forceinline__ void g2p_gather(const GridGeom<D>& g, const int (&x)[
       nb[a] = x[a] + tt[a] - 1;
       dist[a] = (float)(tt[a] - 1) - d[a];
     }
-    if (!in_grid(g, nb)) continue;
-    const int n = flat(g, nb);
+    nb[0] += s.go;
+    if (!in_grid(gg, nb)) continue;
+    const int n = flat(gg, nb);
     const float w = tap_weight(tt, d);
     for (int a = 0; a < D; ++a) {
-      const float wv = w * G::dec(gvel[a * (size_t)g.C + n], mult);
+      const float wv = w * G::dec(gvel[a * (size_t)gg.C + n], mult);
       vel[a] = vel[a] + wv;
       for (int b = 0; b < D; ++b) B[a * D + b] = B[a * D + b] + wv * dist[b];
     }
   }
 }
 
-// cfl: the cfl_clamped counter, added to.
+// cfl: the cfl_clamped counter, added to (on the planes s counts).
 template <int D, typename VC, typename GT, class Params>
 __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict__ mass,
                          const GT* __restrict__ gvel, float* __restrict__ pos_out,
                          VC* __restrict__ vel_out, VC* __restrict__ C_out,
-                         int* __restrict__ cfl, Params p) {
+                         int* __restrict__ cfl, Params p, Slab s) {
   const GridGeom<D> g = p.g;
   const size_t KC = (size_t)g.K * g.C;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -339,7 +361,7 @@ __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict_
   int x[D];
   cell_coords(g, (int)(i % g.C), x);
   float center[D];
-  for (int a = 0; a < D; ++a) center[a] = (float)x[a] + 0.5f;
+  for (int a = 0; a < D; ++a) center[a] = global_coord(s, a, x[a]) + 0.5f;
   if (!(mass[i] > 0.f)) {  // park empty slots at the cell centre
     for (int a = 0; a < D; ++a) {
       pos_out[a * KC + i] = center[a];
@@ -350,7 +372,7 @@ __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict_
   }
   float d[D], vel[D], B[D * D];
   for (int a = 0; a < D; ++a) d[a] = pos[a * KC + i] - center[a];
-  g2p_gather<D, GT>(g, x, d, gvel, grid_mult<GT>(p), vel, B);
+  g2p_gather<D, GT>(g, x, d, gvel, grid_mult<GT>(p), vel, B, s);
 
   float ps[D];
   for (int a = 0; a < D; ++a) {
@@ -394,7 +416,7 @@ __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict_
     store_vc(vel_out, a * KC + i, vel[a]);
   }
   for (int a = 0; a < D * D; ++a) store_vc(C_out, a * KC + i, 4.0f * B[a]);
-  if (moved) atomicAdd(cfl, 1);
+  if (moved && counted(s, x[0])) atomicAdd(cfl, 1);
 }
 
 // The per-pass kernel D: G2P velocity and C = 4B, zero at empty slots, no
@@ -416,34 +438,36 @@ __global__ void g2p_vc(const float* __restrict__ pos, const float* __restrict__ 
   cell_coords(g, (int)(i % g.C), x);
   float d[D], vel[D], B[D * D];
   for (int a = 0; a < D; ++a) d[a] = pos[a * KC + i] - ((float)x[a] + 0.5f);
-  g2p_gather<D, GT>(g, x, d, gvel, grid_mult<GT>(p), vel, B);
+  g2p_gather<D, GT>(g, x, d, gvel, grid_mult<GT>(p), vel, B, whole_grid());
   for (int a = 0; a < D; ++a) store_vc(vel_out, a * KC + i, vel[a]);
   for (int a = 0; a < D * D; ++a) store_vc(C_out, a * KC + i, 4.0f * B[a]);
 }
 
 // bucketed.reject_overflow for the cells of one axis phase. ceil_band_y >=
 // 0: upward y-moves out of cells with y >= ceil_band_y are rejected too and
-// counted in `ceiling` (the air window's ceiling; -1 for none).
+// counted in `ceiling` (the air window's ceiling; -1 for none). Both
+// counters count on the planes s counts.
 template <int D>
 __global__ void migrate_reject(const float* __restrict__ pos, const float* __restrict__ mass,
                                float* __restrict__ R, int* __restrict__ deferred,
                                int* __restrict__ ceiling, int axis, int ceil_band_y,
-                               GridGeom<D> g) {
+                               GridGeom<D> g, Slab s) {
   const size_t KC = (size_t)g.K * g.C;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= g.C) return;
   const int co = axis_coord(g, c, axis);
-  const int s = axis_stride(g, axis);
+  const int cg = axis == 0 ? co + s.x0 : co;  // the global coordinate
+  const int st = axis_stride(g, axis);
   const int n_a = axis_extent(g, axis);
   const float* pa = pos + axis * KC;
 
   int occ0_r = 0, occ0_l = 0, nmovr_l2 = 0;
   for (int k = 0; k < g.K; ++k) {
     const size_t row = (size_t)k * g.C;
-    if (co + 1 < n_a && mass[row + c + s] > 0.f) ++occ0_r;
-    if (co - 1 >= 0 && mass[row + c - s] > 0.f) ++occ0_l;
-    if (co - 2 >= 0 && mass[row + c - 2 * s] > 0.f &&
-        axis_delta(pa[row + c - 2 * s], co - 2) == 1.0f)
+    if (co + 1 < n_a && mass[row + c + st] > 0.f) ++occ0_r;
+    if (co - 1 >= 0 && mass[row + c - st] > 0.f) ++occ0_l;
+    if (co - 2 >= 0 && mass[row + c - 2 * st] > 0.f &&
+        axis_delta(pa[row + c - 2 * st], cg - 2) == 1.0f)
       ++nmovr_l2;
   }
   const bool ceil_band = axis == 1 && ceil_band_y >= 0 && co >= ceil_band_y;
@@ -452,7 +476,7 @@ __global__ void migrate_reject(const float* __restrict__ pos, const float* __res
     const size_t i = (size_t)k * g.C + c;
     float xa = pa[i];
     if (mass[i] > 0.f) {
-      const float delta = axis_delta(xa, co);
+      const float delta = axis_delta(xa, cg);
       bool rej = false;
       if (delta == 1.0f) {
         rej = occ0_r + rank_r >= g.K;
@@ -466,12 +490,13 @@ __global__ void migrate_reject(const float* __restrict__ pos, const float* __res
         ++rank_l;
       }
       if (rej) {
-        xa = fminf(fmaxf(xa, (float)co), ((float)co + 1.0f) - CFL_EPS);
+        xa = fminf(fmaxf(xa, (float)cg), ((float)cg + 1.0f) - CFL_EPS);
         ++n_rej;
       }
     }
     R[i] = xa;
   }
+  if (!counted(s, axis_coord(g, c, 0))) return;
   if (n_rej) atomicAdd(deferred, n_rej);
   if (n_ceil) atomicAdd(ceiling, n_ceil);
 }
@@ -485,13 +510,14 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
                                float* __restrict__ pos_o, T* __restrict__ vel_o,
                                T* __restrict__ C_o, float* __restrict__ mass_o,
                                int* __restrict__ ids_o, int* __restrict__ lost, int axis,
-                               GridGeom<D> g) {
+                               GridGeom<D> g, Slab s) {
   const size_t KC = (size_t)g.K * g.C;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= g.C) return;
   const int co = axis_coord(g, c, axis);
-  const int s = axis_stride(g, axis);
+  const int st = axis_stride(g, axis);
   const int n_a = axis_extent(g, axis);
+  const int xg = axis == 0 ? s.x0 : 0;  // local to global coordinate
 
   int n = 0;
   // candidates: own slots staying (shift 0), the left neighbour's slots
@@ -500,10 +526,10 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
     const int shift = src_i == 0 ? 0 : (src_i == 1 ? 1 : -1);
     const int src_co = co - shift;
     if (src_co < 0 || src_co >= n_a) continue;
-    const int src = c - shift * s;
+    const int src = c - shift * st;
     for (int k = 0; k < g.K; ++k) {
       const size_t i = (size_t)k * g.C + src;
-      if (!(mass[i] > 0.f) || axis_delta(R[i], src_co) != (float)shift) continue;
+      if (!(mass[i] > 0.f) || axis_delta(R[i], src_co + xg) != (float)shift) continue;
       if (n < g.K) {
         const size_t o = (size_t)n * g.C + c;
         for (int a = 0; a < D; ++a) {
@@ -527,10 +553,38 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
     mass_o[o] = 0.f;
     ids_o[o] = -1;
   }
-  if (n > g.K) atomicAdd(lost, n - g.K);
+  if (n > g.K && counted(s, axis_coord(g, c, 0))) atomicAdd(lost, n - g.K);
 }
 
 constexpr int THREADS = 256;
+
+// Kernel P's first launch: pass-1 mass and momentum on the nodes of
+// grid_geom(p.g, s). The sharded stage 1 (p2g_shard.cu) is this launch alone.
+template <int D, typename VC, typename GT, class Params>
+cudaError_t launch_p2g_pass1(const Params& p, const float* pos, const VC* vel, const VC* Cm,
+                             const float* mass, GT* gmass, GT* gmom, cudaStream_t stream,
+                             const Slab& s = whole_grid()) {
+  p2g_mass_mom<D, VC, GT><<<blocks_for(grid_geom(p.g, s).C, THREADS), THREADS, 0, stream>>>(
+      pos, vel, Cm, mass, gmass, gmom, p, s);
+  return cudaGetLastError();
+}
+
+// Kernel P's last two launches: the force coefficients from gmass, then
+// pass 2 on gmom and the grid update into gvel. The sharded stage 2
+// (p2g_shard.cu) is these two launches.
+template <int D, typename VC, typename GT, class Params>
+cudaError_t launch_p2g_pass2(const Params& p, const float* pos, const VC* Cm, const float* mass,
+                             const GT* gmass, const GT* gmom, float* a_p, float* b_mu, GT* gvel,
+                             cudaStream_t stream, const Slab& s = whole_grid()) {
+  const size_t KC = (size_t)p.g.K * p.g.C;
+  p2g_coef<D, GT><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(pos, mass, gmass, a_p, b_mu,
+                                                                   p, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  p2g_force_grid<D, VC, GT><<<blocks_for(grid_geom(p.g, s).C, THREADS), THREADS, 0, stream>>>(
+      pos, Cm, mass, a_p, b_mu, gmass, gmom, gvel, p, s);
+  return cudaGetLastError();
+}
 
 // Kernel P's chain on `stream`: pos, vel, C and mass in; gmass [C] and gvel
 // [D, C] out (GT float, or int for a fixed-point grid); gmom [D, C], a_p and
@@ -539,27 +593,18 @@ template <int D, typename VC, typename GT, class Params>
 cudaError_t launch_p2g(const Params& p, const float* pos, const VC* vel, const VC* Cm,
                        const float* mass, GT* gmass, GT* gmom, float* a_p, float* b_mu,
                        GT* gvel, cudaStream_t stream) {
-  const size_t KC = (size_t)p.g.K * p.g.C;
-  p2g_mass_mom<D, VC, GT><<<blocks_for(p.g.C, THREADS), THREADS, 0, stream>>>(
-      pos, vel, Cm, mass, gmass, gmom, p);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_p2g_pass1<D>(p, pos, vel, Cm, mass, gmass, gmom, stream);
   if (err != cudaSuccess) return err;
-  p2g_coef<D, GT><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(pos, mass, gmass, a_p, b_mu,
-                                                                   p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  p2g_force_grid<D, VC, GT><<<blocks_for(p.g.C, THREADS), THREADS, 0, stream>>>(
-      pos, Cm, mass, a_p, b_mu, gmass, gmom, gvel, p);
-  return cudaGetLastError();
+  return launch_p2g_pass2<D>(p, pos, Cm, mass, gmass, gmom, a_p, b_mu, gvel, stream);
 }
 
 template <int D, typename VC, typename GT, class Params>
 cudaError_t launch_g2p_tail(const Params& p, const float* pos, const float* mass,
                             const GT* gvel, float* pos_out, VC* vel_out, VC* C_out, int* cfl,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, const Slab& s = whole_grid()) {
   const size_t KC = (size_t)p.g.K * p.g.C;
   g2p_tail<D, VC, GT><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(
-      pos, mass, gvel, pos_out, vel_out, C_out, cfl, p);
+      pos, mass, gvel, pos_out, vel_out, C_out, cfl, p, s);
   return cudaGetLastError();
 }
 
@@ -580,17 +625,18 @@ struct StateBuf {
 template <int D, typename T>
 cudaError_t launch_migrate(const GridGeom<D>& g, StateBuf<T> src, StateBuf<T> out0,
                            StateBuf<T> out1, float* R, int* lost, int* deferred,
-                           int* ceiling, int ceil_band_y, cudaStream_t stream) {
+                           int* ceiling, int ceil_band_y, cudaStream_t stream,
+                           const Slab& s = whole_grid()) {
   StateBuf<T> dst = out0;
   for (int ph = 0; ph < D; ++ph) {
     const int axis = D - 1 - ph;
     migrate_reject<D><<<blocks_for(g.C, THREADS), THREADS, 0, stream>>>(
-        src.pos, src.mass, R, deferred, ceiling, axis, ceil_band_y, g);
+        src.pos, src.mass, R, deferred, ceiling, axis, ceil_band_y, g, s);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     migrate_select<D, T><<<blocks_for(g.C, THREADS), THREADS, 0, stream>>>(
         src.pos, R, src.vel, src.C, src.mass, src.ids, dst.pos, dst.vel, dst.C, dst.mass,
-        dst.ids, lost, axis, g);
+        dst.ids, lost, axis, g, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     src = dst;

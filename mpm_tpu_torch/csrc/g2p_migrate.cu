@@ -36,6 +36,13 @@
 // The TPU kernel's plane sweep, rings, packed bf16 pairs and zero-mover
 // gates do not carry over. In fixed-point mode (fused.py:508-515) the grid
 // velocity is int32 and the gather decodes each node as it reads it.
+//
+// Shard mode (fused.py:439-442, 985-996; parallel/domain.py): the state is
+// a slab padded with two neighbour planes a side, the grid velocity has one
+// plane more than the state on each side (go = 1), physical coordinates
+// take the slab's global offset x0, and the counters count only the slab's
+// own planes [2, L-3]. All of it is the parameter block's Slab; the whole
+// grid is mpm::whole_grid().
 
 #include "bucket_kernels.cuh"
 #include "extract_cells.cuh"
@@ -49,6 +56,7 @@ struct G2PParams {
   int dres[3];
   int n_inter;
   int ceil_band_y;  // >= 0: upward y-moves out of cells with y >= this are rejected
+  mpm::Slab slab;   // shard mode; mpm::whole_grid() otherwise
   float dt;
   float clamp_lo, clamp_hi_offset;
   float wall_min, wall_max_offset, wall_stiffness;
@@ -63,13 +71,13 @@ cudaError_t launch(const G2PParams& p, mpm::StateBuf<RAW> in, const GT* gvel,
                    mpm::StateBuf<RAW> A, mpm::StateBuf<RAW> B, float* R, int* cnt,
                    const mpm::RenderScals* rs, float* splats, cudaStream_t stream) {
   cudaError_t err = mpm::launch_g2p_tail<3>(p, in.pos, in.mass, gvel, A.pos, (VC*)A.vel,
-                                            (VC*)A.C, cnt + CNT_CFL, stream);
+                                            (VC*)A.C, cnt + CNT_CFL, stream, p.slab);
   if (err != cudaSuccess) return err;
   // G2P leaves mass and ids unchanged: the z phase reads them from the
   // input. The phases write B, A, B: the result is in B.
   mpm::StateBuf<RAW> src = {A.pos, A.vel, A.C, in.mass, in.ids};
   err = mpm::launch_migrate<3>(p.g, src, B, A, R, cnt + CNT_LOST, cnt + CNT_DEFERRED,
-                               cnt + CNT_CEILING, p.ceil_band_y, stream);
+                               cnt + CNT_CEILING, p.ceil_band_y, stream, p.slab);
   if (err != cudaSuccess || splats == nullptr) return err;
   return mpm::launch_extract(B.pos, (const VC*)B.vel, B.mass, p.g.K, p.g.C, *rs, splats,
                              stream);
@@ -82,8 +90,9 @@ extern "C" {
 int g2p_migrate_params_size() { return (int)sizeof(G2PParams); }
 int g2p_migrate_max_interactions() { return mpm::MAX_INTER; }
 
-// Input state (pos, vel, C, mass, ids) and grid velocity gvel [3, C],
-// float32, or int32 fixed point when `fixed` (decoded as it is read). A and
+// Input state (pos, vel, C, mass, ids) and grid velocity gvel [3, C] (on a
+// slab [3, C + 2 * go * plane cells]), float32, or int32 fixed point when
+// `fixed` (decoded as it is read). A and
 // B are two full state buffers; the result is left in B. R is a [K, C]
 // scratch row. cnt [4] int32 = lost, cfl_clamped, deferred, ceiling, added to.
 // splats [5, C] f32, or null for no emission; scals: 16 host floats

@@ -34,6 +34,41 @@ using Geom2 = GridGeom<2>;
 template <int D>
 constexpr int NTAPS = D == 2 ? 9 : 27;  // 3^D nodes of the quadratic B-spline
 
+// Where a state's arrays sit in an x-slab decomposition (ops/bucketed.Slab,
+// parallel/domain.py). x0: the global plane of the state's plane 0; it
+// enters only where a coordinate becomes physical (cell centres, migration
+// deltas, boundary bands), and neighbour indexing stays local, with cells
+// past the array's ends empty. go: the grid arrays hold go more planes than
+// the state on each side of axis 0 (grid plane j is state plane j - go).
+// c_lo, c_hi: the state planes whose counter events count. Mirrored by
+// ops/cuda/g2p_migrate.SlabC.
+struct Slab {
+  int x0;
+  int go;
+  int c_lo, c_hi;
+};
+// The whole grid: no offset, no halo planes, every plane counted.
+__host__ __device__ constexpr Slab whole_grid() { return {0, 0, 0, 0x7fffffff}; }
+
+// The grid of a slab: the state's geometry, go planes wider on each side.
+template <int D>
+__host__ __device__ __forceinline__ GridGeom<D> grid_geom(const GridGeom<D>& g, const Slab& s) {
+  GridGeom<D> r = g;
+  r.n[0] = g.n[0] + 2 * s.go;
+  r.C = g.C / g.n[0] * r.n[0];
+  return r;
+}
+
+// The global coordinate, as a float, of local coordinate x on axis a.
+__device__ __forceinline__ float global_coord(const Slab& s, int a, int x) {
+  return (float)(a == 0 ? x + s.x0 : x);
+}
+
+// Whether counter events of state plane `plane` count.
+__device__ __forceinline__ bool counted(const Slab& s, int plane) {
+  return plane >= s.c_lo && plane <= s.c_hi;
+}
+
 template <int D>
 __device__ __forceinline__ void cell_coords(const GridGeom<D>& g, int c, int (&x)[D]) {
   for (int a = D - 1; a >= 0; --a) {

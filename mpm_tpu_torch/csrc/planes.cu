@@ -50,7 +50,7 @@ int p2g1_planes(const void* params, const float* pos, const float* vel, const fl
   const P2GParams& p = *(const P2GParams*)params;
   mpm::p2g_mass_mom<3, float, float><<<blocks_for(p.g.C, THREADS), THREADS, 0,
                                        (cudaStream_t)stream>>>(pos, vel, Cm, mass, gmass,
-                                                               gmom, p);
+                                                               gmom, p, mpm::whole_grid());
   return (int)cudaGetLastError();
 }
 
@@ -62,7 +62,7 @@ int p2g2_planes(const void* params, const float* pos, const float* Cm, const flo
   cudaStream_t s = (cudaStream_t)stream;
   const size_t KC = (size_t)p.g.K * p.g.C;
   mpm::p2g_coef<3, float><<<blocks_for(KC, THREADS), THREADS, 0, s>>>(pos, mass, gmass, a_p,
-                                                                      b_mu, p);
+                                                                      b_mu, p, mpm::whole_grid());
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mpm::p2g_force<3, float, float><<<blocks_for(p.g.C, THREADS), THREADS, 0, s>>>(

@@ -24,6 +24,11 @@ then a gather over the 3^D neighbour buckets at constant flat offsets:
 This module is the CPU engine and the plain version that the CUDA kernels
 (ops/cuda/) are held against. Sums over the K slots of a bucket run in slot
 order (`_ksum`), the order the kernels use.
+
+Every pass also runs on one slab of an x-slab decomposition
+(parallel/domain.py), described by a `Slab`: the arrays' plane 0 sits at a
+global x offset, a grid may reach planes past the state's, and the counters
+count only the slab's own planes. The default `WHOLE` is the whole grid.
 """
 
 from __future__ import annotations
@@ -42,6 +47,29 @@ from .interact import Interaction, apply_interactions
 from .stress import eos_pressure
 
 CFL_EPS = 1e-3  # cell + 2 - eps still floors to cell + 1 for any res < 2^10
+
+
+@dataclasses.dataclass(frozen=True)
+class Slab:
+    """Where a bucket state's arrays sit in an x-slab decomposition
+    (parallel/domain.py; the JAX package's kernels take the same as x0,
+    their halo planes and their counter gate, fused.py:439-442, 985-996).
+
+    x0: the global plane of the state's plane 0. Only physical coordinates
+    (cell centres, migration deltas, boundary bands) use it; neighbour
+    indexing stays local, and cells past the array's ends read as empty.
+    go: the grid arrays hold `go` more planes than the state on each side of
+    axis 0 (grid plane j is state plane j - go).
+    c_lo, c_hi: the state planes whose counter events (lost, deferred,
+    cfl_clamped, ceiling) count; None = the last plane."""
+
+    x0: int = 0
+    go: int = 0
+    c_lo: int = 0
+    c_hi: int | None = None
+
+
+WHOLE = Slab()
 
 
 def _counter(device) -> torch.Tensor:
@@ -89,15 +117,52 @@ def flat_tap_offsets(config: SimConfig) -> list[int]:
             for t in bspline.taps(config.dim)]
 
 
-def cell_coords(config: SimConfig, device, dtype=torch.float32) -> torch.Tensor:
-    """[D, C] integer coordinates of each flat cell."""
+def cell_coords(config: SimConfig, device, dtype=torch.float32, x0: int = 0) -> torch.Tensor:
+    """[D, C] integer coordinates of each flat cell, axis 0 offset by x0."""
     i = torch.arange(config.num_cells, dtype=torch.int32, device=device)
     coords = []
     stride = config.num_cells
     for a in range(config.dim):
         stride //= config.grid_res[a]
-        coords.append((i // stride) % config.grid_res[a])
+        coords.append((i // stride) % config.grid_res[a] + (x0 if a == 0 else 0))
     return torch.stack(coords).to(dtype)
+
+
+def slab_config(config: SimConfig, planes: int) -> SimConfig:
+    """The config of a slab of `planes` x-planes of `config`'s grid: array
+    extents cut to the slab, physics positions (clamps, walls, bands) at
+    the true domain."""
+    return config.replace(grid_res=(planes, *config.grid_res[1:]), domain_res=config.dres)
+
+
+def _grid_config(config: SimConfig, slab: Slab) -> SimConfig:
+    """The config of a slab's grid arrays: `slab.go` more planes a side."""
+    if not slab.go:
+        return config
+    return slab_config(config, config.grid_res[0] + 2 * slab.go)
+
+
+def _pad_planes(x: torch.Tensor, config: SimConfig, go: int) -> torch.Tensor:
+    """`go` empty (zero) x-planes on each side of a [..., C] array."""
+    pc = config.num_cells // config.grid_res[0]
+    return _pad_last(x, go * pc)
+
+
+def _counted(config: SimConfig, slab: Slab, device) -> torch.Tensor | None:
+    """[C] bool: the cells whose counter events count (None: every cell)."""
+    nx = config.grid_res[0]
+    c_hi = nx - 1 if slab.c_hi is None else slab.c_hi
+    if slab.c_lo <= 0 and c_hi >= nx - 1:
+        return None
+    plane = cell_coords(config, device, torch.int32)[0]
+    return (plane >= slab.c_lo) & (plane <= c_hi)
+
+
+def _count(events: torch.Tensor, gate: torch.Tensor | None) -> torch.Tensor:
+    """int32 count of the true entries of `events` ([..., C]) in counted cells."""
+    if gate is not None:
+        events = events & gate
+    return events.sum(dtype=torch.int32)
 
 
 def _pad_last(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -132,30 +197,36 @@ def _decode(x, config: SimConfig):
 # ---------------------------------------------------------------- transfers
 
 
-def _tap_geometry(config: SimConfig, device):
+def _tap_geometry(config: SimConfig, device, x0: int = 0):
     """(halo h, cell centres [D, C], taps, their flat offsets, their
     offsets [D, 1, 1] as floats)."""
     h = sum(strides(config))
-    center = cell_coords(config, device) + 0.5  # [D, C]
+    center = cell_coords(config, device, x0=x0) + 0.5  # [D, C]
     taps = bspline.taps(config.dim)
     ovs = [torch.tensor([float(t[a] - 1) for a in range(config.dim)], device=device)
            .reshape(config.dim, 1, 1) for t in taps]
     return h, center, taps, flat_tap_offsets(config), ovs
 
 
-def p2g_pass1(state: BucketState, config: SimConfig) -> Grid:
+def p2g_pass1(state: BucketState, config: SimConfig, slab: Slab = WHOLE) -> Grid:
     """P2G pass 1 (p2g_1.glsl): grid mass and APIC momentum, each slot's
-    contribution encoded for a fixed-point config."""
-    dim, k, c = state.pos.shape
+    contribution encoded for a fixed-point config. On a slab the grid has
+    slab.go more planes a side, as if the state had empty planes there."""
+    gcfg = _grid_config(config, slab)
     dev = state.device
-    h, center, taps, offs, ovs = _tap_geometry(config, dev)
-    pos_p = _pad_last(state.pos, h)
-    # vel/C may be stored bf16; all arithmetic is float32
-    vel_p = _pad_last(state.vel.to(state.pos.dtype), h)
-    C_p = _pad_last(state.C.to(state.pos.dtype), h)
-    mass_p = _pad_last(state.mass, h)
+    h, center, taps, offs, ovs = _tap_geometry(gcfg, dev, slab.x0 - slab.go)
+    c = gcfg.num_cells
 
-    grid0 = zero_grid(config, dev)
+    def pad(x):  # the state on the grid's planes, then the flat halo
+        return _pad_last(_pad_planes(x, config, slab.go), h)
+
+    pos_p = pad(state.pos)
+    # vel/C may be stored bf16; all arithmetic is float32
+    vel_p = pad(state.vel.to(state.pos.dtype))
+    C_p = pad(state.C.to(state.pos.dtype))
+    mass_p = pad(state.mass)
+
+    grid0 = zero_grid(gcfg, dev)
     gmass, gmom = grid0.mass, grid0.mom
     # node c gathers from bucket b = c + off with the reflected tap 2 - t
     # (the tap set is symmetric); the particle's offset from its own cell
@@ -178,17 +249,18 @@ def p2g_pass1(state: BucketState, config: SimConfig) -> Grid:
 
 
 def force_coefs(state: BucketState, gmass: torch.Tensor, config: SimConfig,
-                fp: FluidParams) -> tuple[torch.Tensor, torch.Tensor]:
+                fp: FluidParams, slab: Slab = WHOLE) -> tuple[torch.Tensor, torch.Tensor]:
     """The density gather from the pass-1 grid mass, the EOS, and pass 2's
     force coefficients (a_p, b_mu), each [K, C]."""
     dim, k, c = state.pos.shape
     dev = state.device
-    h, center, taps, offs, _ = _tap_geometry(config, dev)
+    h, center, taps, offs, _ = _tap_geometry(config, dev, slab.x0)
+    go = slab.go * (c // config.grid_res[0])  # the grid's extra cells a side
     gmass_pad = _pad_last(gmass, h)
     density = torch.zeros((k, c), dtype=state.pos.dtype, device=dev)
     d_own = state.pos - center[:, None, :]  # [D, K, C] = frac - 0.5
     for tap, off in zip(taps, offs):
-        gm = _decode(_shift(gmass_pad, h, off, c), config)
+        gm = _decode(_shift(gmass_pad, h, off + go, c), config)
         w = bspline.tap_weight(d_own, tap)
         density = density + w * gm[None, :]
 
@@ -201,17 +273,24 @@ def force_coefs(state: BucketState, gmass: torch.Tensor, config: SimConfig,
 
 
 def p2g_pass2(state: BucketState, a_p: torch.Tensor, b_mu: torch.Tensor,
-              gmom: torch.Tensor, config: SimConfig) -> torch.Tensor:
+              gmom: torch.Tensor, config: SimConfig, slab: Slab = WHOLE) -> torch.Tensor:
     """P2G pass 2 (p2g_2.glsl): the EOS and viscosity force momentum added
-    to `gmom` tap by tap, encoded for a fixed-point config."""
-    dim, k, c = state.pos.shape
+    to `gmom` tap by tap, encoded for a fixed-point config. On a slab `gmom`
+    has slab.go more planes a side than the state."""
+    dim = state.dim
+    gcfg = _grid_config(config, slab)
     dev = state.device
-    h, center, taps, offs, ovs = _tap_geometry(config, dev)
-    pos_p = _pad_last(state.pos, h)
-    C_p = _pad_last(state.C.to(state.pos.dtype), h)
-    mass_p = _pad_last(state.mass, h)
-    a_p_pad = _pad_last(a_p, h)
-    b_mu_pad = _pad_last(b_mu, h)
+    h, center, taps, offs, ovs = _tap_geometry(gcfg, dev, slab.x0 - slab.go)
+    c = gcfg.num_cells
+
+    def pad(x):
+        return _pad_last(_pad_planes(x, config, slab.go), h)
+
+    pos_p = pad(state.pos)
+    C_p = pad(state.C.to(state.pos.dtype))
+    mass_p = pad(state.mass)
+    a_p_pad = pad(a_p)
+    b_mu_pad = pad(b_mu)
     for tap, off, ov in zip(taps, offs, ovs):
         P = _shift(pos_p, h, off, c)
         M = _shift(mass_p, h, off, c)
@@ -242,21 +321,23 @@ def p2g_bucketed(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid
     return Grid(mom=p2g_pass2(state, a_p, b_mu, g1.mom, config), mass=g1.mass)
 
 
-def g2p_gather(state: BucketState, grid: Grid,
-               config: SimConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def g2p_gather(state: BucketState, grid: Grid, config: SimConfig,
+               slab: Slab = WHOLE) -> tuple[torch.Tensor, torch.Tensor]:
     """The windowed G2P gather (g2p.glsl:73-108): float32 vel [D, K, C] and
-    C = 4B [D, D, K, C], not yet zeroed at empty slots."""
+    C = 4B [D, D, K, C], not yet zeroed at empty slots. On a slab the grid
+    velocity has slab.go more planes a side than the state."""
     dim, k, c = state.pos.shape
     dev = state.device
     h = sum(strides(config))
-    center = cell_coords(config, dev) + 0.5
+    go = slab.go * (c // config.grid_res[0])
+    center = cell_coords(config, dev, x0=slab.x0) + 0.5
     d_own = state.pos - center[:, None, :]
 
     gvel_pad = _pad_last(grid.mom, h)
     vel = torch.zeros(state.vel.shape, dtype=state.pos.dtype, device=dev)
     B = torch.zeros(state.C.shape, dtype=state.pos.dtype, device=dev)
     for tap, off in zip(bspline.taps(dim), flat_tap_offsets(config)):
-        gv = _decode(_shift(gvel_pad, h, off, c), config)  # [D, C] at b + off
+        gv = _decode(_shift(gvel_pad, h, off + go, c), config)  # [D, C] at b + off
         w = bspline.tap_weight(d_own, tap)  # [K, C]
         dist = bspline.tap_dist(d_own, tap)  # [D, K, C]
         wv = w[None] * gv[:, None, :]
@@ -267,13 +348,13 @@ def g2p_gather(state: BucketState, grid: Grid,
 
 def advect_tail(state: BucketState, vel: torch.Tensor, Cmat: torch.Tensor,
                 config: SimConfig, fp: FluidParams,
-                interactions: Sequence[Interaction] = ()) -> BucketState:
+                interactions: Sequence[Interaction] = (), slab: Slab = WHOLE) -> BucketState:
     """The tail after the G2P gather (g2p.glsl:110-147): advect, clamp,
     interactions, wall springs, the CFL bucket clamp and its count; empty
     slots parked at the cell centre with zero vel and C, stored in the
     storage type."""
     dev = state.device
-    center = cell_coords(config, dev) + 0.5
+    center = cell_coords(config, dev, x0=slab.x0) + 0.5
     pos = state.pos + vel * fp.dt
     res = torch.tensor(config.dres, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
     pos = torch.minimum(torch.clamp(pos, min=config.clamp_lo),
@@ -303,16 +384,16 @@ def advect_tail(state: BucketState, vel: torch.Tensor, Cmat: torch.Tensor,
         pos=pos,
         vel=vel.to(config.vc_dtype),
         C=Cmat.to(config.vc_dtype),
-        cfl_clamped=state.cfl_clamped + moved.sum(dtype=torch.int32),
+        cfl_clamped=state.cfl_clamped + _count(moved, _counted(config, slab, dev)),
     )
 
 
 def g2p_bucketed(state: BucketState, grid: Grid, config: SimConfig,
-                 fp: FluidParams,
-                 interactions: Sequence[Interaction] = ()) -> BucketState:
+                 fp: FluidParams, interactions: Sequence[Interaction] = (),
+                 slab: Slab = WHOLE) -> BucketState:
     """Windowed G2P gather and the advection tail (g2p.glsl:52-147)."""
-    vel, Cmat = g2p_gather(state, grid, config)
-    return advect_tail(state, vel, Cmat, config, fp, interactions)
+    vel, Cmat = g2p_gather(state, grid, config, slab)
+    return advect_tail(state, vel, Cmat, config, fp, interactions, slab)
 
 
 # ---------------------------------------------------------------- migration
@@ -326,7 +407,8 @@ def _shift_cells(x: torch.Tensor, off: int) -> torch.Tensor:
     return _shift(_pad_last(x, h), h, off, x.shape[-1])
 
 
-def reject_overflow(state: BucketState, config: SimConfig, axis: int) -> BucketState:
+def reject_overflow(state: BucketState, config: SimConfig, axis: int,
+                    slab: Slab = WHOLE) -> BucketState:
     """Overflow rejection along one axis, before the migration phase. A mover
     whose destination cannot take it stays in its source cell with pos
     clamped back inside (counted in `deferred`). Incoming candidate i (in
@@ -337,7 +419,8 @@ def reject_overflow(state: BucketState, config: SimConfig, axis: int) -> BucketS
     exchange evaluate the same formula on the same state, so they agree."""
     dim, k, c = state.pos.shape
     stride = strides(config)[axis]
-    coord = cell_coords(config, state.device)[axis]
+    coord = cell_coords(config, state.device, x0=slab.x0)[axis]
+    gate = _counted(config, slab, state.device)
     delta = torch.clamp(torch.floor(state.pos[axis]) - coord[None, :], -1.0, 1.0)
     occ = state.mass > 0
 
@@ -364,25 +447,26 @@ def reject_overflow(state: BucketState, config: SimConfig, axis: int) -> BucketS
         band = coord >= config.grid_res[1] - 4
         rej_ceil = movr & band[None, :] & ~rej
         rej = rej | rej_ceil
-        ceiling = ceiling + rej_ceil.sum(dtype=torch.int32)
+        ceiling = ceiling + _count(rej_ceil, gate)
     pos_ax = torch.minimum(torch.maximum(state.pos[axis], coord[None, :]),
                            coord[None, :] + 1.0 - CFL_EPS)
     new_pos = state.pos.clone()
     new_pos[axis] = torch.where(rej, pos_ax, state.pos[axis])
     return state.replace(pos=new_pos,
-                         deferred=state.deferred + rej.sum(dtype=torch.int32),
+                         deferred=state.deferred + _count(rej, gate),
                          ceiling=ceiling)
 
 
-def _migrate_axis(state: BucketState, config: SimConfig, axis: int) -> BucketState:
+def _migrate_axis(state: BucketState, config: SimConfig, axis: int,
+                  slab: Slab = WHOLE) -> BucketState:
     """One axis-split migration phase: repack every cell from its [stay,
     from-left, from-right] 3K candidates, in slot order, after overflow
     rejection (reject_overflow)."""
     dim, k, c = state.pos.shape
     stride = strides(config)[axis]
-    coord = cell_coords(config, state.device)[axis]
+    coord = cell_coords(config, state.device, x0=slab.x0)[axis]
 
-    state = reject_overflow(state, config, axis)
+    state = reject_overflow(state, config, axis, slab)
 
     delta = torch.clamp(torch.floor(state.pos[axis]) - coord[None, :], -1.0, 1.0)
     occ = state.mass > 0
@@ -397,7 +481,11 @@ def _migrate_axis(state: BucketState, config: SimConfig, axis: int) -> BucketSta
 
     rank = torch.cumsum(cand_mask.to(torch.int32), dim=0, dtype=torch.int32) - 1
     total = cand_mask.sum(dim=0, dtype=torch.int32)
-    lost = state.lost + torch.clamp(total - k, min=0).sum(dtype=torch.int32)
+    excess = torch.clamp(total - k, min=0)
+    gate = _counted(config, slab, state.device)
+    if gate is not None:
+        excess = torch.where(gate, excess, 0)
+    lost = state.lost + excess.sum(dtype=torch.int32)
 
     # select: candidate j lands in slot rank[j] when rank[j] < K; the rest go
     # to a dump slot K that is cut away (those are the `lost` ones)
@@ -417,11 +505,11 @@ def _migrate_axis(state: BucketState, config: SimConfig, axis: int) -> BucketSta
                          C=select(state.C), mass=new_mass, ids=new_ids, lost=lost)
 
 
-def migrate(state: BucketState, config: SimConfig) -> BucketState:
+def migrate(state: BucketState, config: SimConfig, slab: Slab = WHOLE) -> BucketState:
     # last axis first (3D: z, y, x): slot assignment depends on arrival
     # order, and this is the JAX package's and the kernel's order
     for a in range(config.dim - 1, -1, -1):
-        state = _migrate_axis(state, config, a)
+        state = _migrate_axis(state, config, a, slab)
     return state
 
 

@@ -7,6 +7,11 @@ path.
 version for a state on the CPU and launches the kernel for a state on a
 CUDA device; there is no other fallback. The grid velocity is float32, or
 int32 for a fixed-point config, decoded as the kernel reads it.
+
+Shard mode (`slab`, parallel/domain.py): the state is a padded slab, the
+grid velocity has slab.go more planes a side, physical coordinates take the
+global offset slab.x0, and the counters count the planes [slab.c_lo,
+slab.c_hi] only (ops/bucketed.Slab).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from ...core.params import FluidParams, SimConfig
 from ...core.state import Grid
-from ..bucketed import BucketState, g2p_bucketed, migrate
+from ..bucketed import WHOLE, BucketState, Slab, g2p_bucketed, migrate
 from ..interact import Interaction
 from . import build
 from .extract_cells import cell_splats_plain, render_scals_for, scals_arg
@@ -29,9 +34,22 @@ __all__ = ["g2p_migrate", "g2p_migrate_plain", "render_scals_for"]
 
 launches = 0  # kernel launches by g2p_migrate (plain-version calls not counted)
 emit_launches = 0  # of those, launches that emitted splats
+shard_launches = 0  # of those, launches in shard mode
 
 MAX_INTER = 8  # csrc/g2p_migrate.cu MAX_INTER
 _INTER_VALS = 7
+
+
+class SlabC(ctypes.Structure):
+    """Mirror of mpm::Slab in csrc/mpm_common.cuh."""
+
+    _fields_ = [("x0", ctypes.c_int), ("go", ctypes.c_int),
+                ("c_lo", ctypes.c_int), ("c_hi", ctypes.c_int)]
+
+
+def slab_arg(slab: Slab) -> SlabC:
+    return SlabC(slab.x0, slab.go, slab.c_lo,
+                 0x7FFFFFFF if slab.c_hi is None else slab.c_hi)
 
 
 class G2PParams(ctypes.Structure):
@@ -41,7 +59,7 @@ class G2PParams(ctypes.Structure):
         ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
         ("K", ctypes.c_int), ("C", ctypes.c_int),
         ("dres", ctypes.c_int * 3),
-        ("n_inter", ctypes.c_int), ("ceil_band_y", ctypes.c_int),
+        ("n_inter", ctypes.c_int), ("ceil_band_y", ctypes.c_int), ("slab", SlabC),
         ("dt", ctypes.c_float),
         ("clamp_lo", ctypes.c_float), ("clamp_hi_offset", ctypes.c_float),
         ("wall_min", ctypes.c_float), ("wall_max_offset", ctypes.c_float),
@@ -51,10 +69,10 @@ class G2PParams(ctypes.Structure):
 
 
 def g2p_migrate_plain(state: BucketState, grid: Grid, config: SimConfig,
-                      fp: FluidParams,
-                      interactions: Sequence[Interaction] = ()) -> BucketState:
+                      fp: FluidParams, interactions: Sequence[Interaction] = (),
+                      slab: Slab = WHOLE) -> BucketState:
     """The plain PyTorch version: bucketed.g2p_bucketed + bucketed.migrate."""
-    return migrate(g2p_bucketed(state, grid, config, fp, interactions), config)
+    return migrate(g2p_bucketed(state, grid, config, fp, interactions, slab), config, slab)
 
 
 def ceiling_band_y(config: SimConfig) -> int:
@@ -66,7 +84,7 @@ def ceiling_band_y(config: SimConfig) -> int:
 
 
 def _params(config: SimConfig, fp: FluidParams,
-            interactions: Sequence[Interaction]) -> G2PParams:
+            interactions: Sequence[Interaction], slab: Slab) -> G2PParams:
     if len(interactions) > MAX_INTER:
         raise ValueError(f"kernel F takes at most {MAX_INTER} interactions")
     p = G2PParams()
@@ -75,6 +93,7 @@ def _params(config: SimConfig, fp: FluidParams,
     p.dres[:] = list(config.dres)
     p.n_inter = len(interactions)
     p.ceil_band_y = ceiling_band_y(config)
+    p.slab = slab_arg(slab)
     p.dt = float(fp.dt)
     p.clamp_lo, p.clamp_hi_offset = config.clamp_lo, config.clamp_hi_offset
     p.wall_min, p.wall_max_offset = config.wall_min, config.wall_max_offset
@@ -103,18 +122,20 @@ def _lib() -> ctypes.CDLL:
 
 def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
                 fp: FluidParams, interactions: Sequence[Interaction] = (),
-                emit_splats: bool = False, render_scals: torch.Tensor | None = None):
+                emit_splats: bool = False, render_scals: torch.Tensor | None = None,
+                slab: Slab = WHOLE):
     """G2P + tail + migration: the plain version on the CPU, kernel F on CUDA.
 
     With emit_splats=True it returns (state, splats): splats [5, C] are the
     per-cell splat points of the result (ops/cuda/extract_cells), for the 16
-    `render_scals` of render_scals_for(view, cam)."""
-    global launches, emit_launches
+    `render_scals` of render_scals_for(view, cam). `slab`: shard mode (the
+    module docstring); `config` is then the slab's (bucketed.slab_config)."""
+    global launches, emit_launches, shard_launches
     if emit_splats and render_scals is None:
         raise ValueError("emit_splats needs render_scals (render_scals_for(view, cam))")
     dev = state.pos.device
     if dev.type == "cpu":
-        out = g2p_migrate_plain(state, grid, config, fp, interactions)
+        out = g2p_migrate_plain(state, grid, config, fp, interactions, slab)
         if emit_splats:
             return out, cell_splats_plain(out.pos, out.vel, out.mass, render_scals)
         return out
@@ -124,9 +145,10 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
     check_state(state, config)
     gvel = grid.mom
     gt = torch.int32 if config.fixed_point else torch.float32
-    if (tuple(gvel.shape) != (3, config.num_cells) or gvel.dtype != gt
+    gc = config.num_cells // config.grid_res[0] * (config.grid_res[0] + 2 * slab.go)
+    if (tuple(gvel.shape) != (3, gc) or gvel.dtype != gt
             or gvel.device != dev or not gvel.is_contiguous()):
-        raise ValueError(f"grid.mom must be a contiguous {gt} [3, C] tensor on {dev}")
+        raise ValueError(f"grid.mom must be a contiguous {gt} [3, {gc}] tensor on {dev}")
 
     def new_state():
         return (torch.empty_like(state.pos), torch.empty_like(state.vel),
@@ -137,7 +159,7 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
     R = torch.empty_like(state.mass)
     cnt = torch.stack([state.lost, state.cfl_clamped, state.deferred,
                        state.ceiling]).to(torch.int32)
-    params = _params(config, fp, interactions)
+    params = _params(config, fp, interactions, slab)
     splats = (torch.empty((5, config.num_cells), dtype=torch.float32, device=dev)
               if emit_splats else None)
     lib = _lib()
@@ -153,6 +175,7 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
     build.check_rc("g2p_migrate", rc)
     launches += 1
     emit_launches += int(emit_splats)
+    shard_launches += int(slab != WHOLE)
     pos, vel, C, mass, ids = b
     out = BucketState(pos=pos, vel=vel, C=C, mass=mass, ids=ids, lost=cnt[0],
                       cfl_clamped=cnt[1], deferred=cnt[2], ceiling=cnt[3])

@@ -13,21 +13,24 @@ from ..core.state import Grid
 from . import fixed_point
 
 
-def axis_indices(config: SimConfig, device: torch.device | str) -> list[torch.Tensor]:
-    """Per-axis cell index arrays, each [num_cells] int32, from the flat id."""
+def axis_indices(config: SimConfig, device: torch.device | str,
+                 x0: int = 0) -> list[torch.Tensor]:
+    """Per-axis cell index arrays, each [num_cells] int32, from the flat id;
+    axis 0 offset by x0, the global plane of array plane 0 on a slab."""
     i = torch.arange(config.num_cells, dtype=torch.int32, device=device)
     out = []
     stride = config.num_cells
     for a in range(config.dim):
         stride //= config.grid_res[a]
-        out.append((i // stride) % config.grid_res[a])
+        out.append((i // stride) % config.grid_res[a] + (x0 if a == 0 else 0))
     return out
 
 
-def boundary_bands(config: SimConfig, device: torch.device | str) -> list[torch.Tensor]:
-    """Per-axis boolean masks, each [num_cells]: index < bc_band_lo or
-    index > dres - 1 - bc_band_hi."""
-    idxs = axis_indices(config, device)
+def boundary_bands(config: SimConfig, device: torch.device | str,
+                   x0: int = 0) -> list[torch.Tensor]:
+    """Per-axis boolean masks, each [num_cells]: global index < bc_band_lo
+    or > dres - 1 - bc_band_hi."""
+    idxs = axis_indices(config, device, x0)
     return [
         (idxs[a] < config.bc_band_lo)
         | (idxs[a] > config.dres[a] - 1 - config.bc_band_hi)
@@ -35,9 +38,10 @@ def boundary_bands(config: SimConfig, device: torch.device | str) -> list[torch.
     ]
 
 
-def update_grid(grid: Grid, config: SimConfig, fp: FluidParams) -> Grid:
+def update_grid(grid: Grid, config: SimConfig, fp: FluidParams, x0: int = 0) -> Grid:
     """momentum -> velocity, gravity, boundary conditions. The returned
-    `mom` holds grid velocities (update_grid.glsl:44-56)."""
+    `mom` holds grid velocities (update_grid.glsl:44-56). On a slab x0 is
+    the global plane of the grid's plane 0 (the bands are global)."""
     if config.fixed_point:
         mass = fixed_point.decode(grid.mass, config.fixed_point_mult, config.dtype)
         mom = fixed_point.decode(grid.mom, config.fixed_point_mult, config.dtype)
@@ -50,7 +54,7 @@ def update_grid(grid: Grid, config: SimConfig, fp: FluidParams) -> Grid:
     dtg = (fp.dt * fp.gravity).to(device)
     vel = mom / safe_mass + dtg[:, None]  # [D, num_cells]
 
-    bands = boundary_bands(config, device)
+    bands = boundary_bands(config, device, x0)
     if config.bc == BC_SLIP:
         vel = torch.stack(
             [torch.where(bands[a], 0.0, vel[a]) for a in range(config.dim)]

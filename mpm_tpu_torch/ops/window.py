@@ -19,6 +19,10 @@ domain:
   ceiling) back with one small device-to-host copy, keeps `headroom`
   planes above the surface, grows at once on a ceiling hit (counted in
   `interference`), and shrinks with 2 * quantum hysteresis.
+- Over a SlabMesh (parallel/domain.py) the chunks run the sharded step.
+  The slabs split only x, so the window is global: the max y is taken over
+  the slabs, the ceiling counter is the slabs' total, and a resize acts on
+  every slab. The resize schedule is the unsharded window's.
 """
 
 from __future__ import annotations
@@ -47,19 +51,20 @@ def window_config(config: SimConfig, wy: int) -> SimConfig:
     return config.replace(grid_res=(nx, wy, nz), domain_res=config.grid_res)
 
 
-def _poll_vals(state: bucketed.BucketState, nx: int, wy: int, nz: int) -> torch.Tensor:
+def _poll_vals(state: bucketed.BucketState, wy: int, nz: int) -> torch.Tensor:
     """[2] int32 on the state's device: (max occupied y, ceiling counter)."""
-    occ_y = torch.any((state.mass > 0).reshape(-1, nx, wy, nz), dim=3)
-    occ_y = torch.any(torch.any(occ_y, dim=1), dim=0)  # [wy]
+    occ_y = torch.any((state.mass > 0).reshape(-1, wy, nz), dim=2)
+    occ_y = torch.any(occ_y, dim=0)  # [wy]
     ys = torch.arange(wy, dtype=torch.int32, device=state.device)
     maxy = torch.max(torch.where(occ_y, ys, -1))
     return torch.stack([maxy, state.ceiling.to(torch.int32)])
 
 
 def _resize(state: bucketed.BucketState, old_cfg: SimConfig,
-            new_cfg: SimConfig) -> bucketed.BucketState:
+            new_cfg: SimConfig, x0: int = 0) -> bucketed.BucketState:
     """Pad (grow) or slice (shrink) the bucket arrays along y. Empty slots in
-    the new region are parked at their own cell centers."""
+    the new region are parked at their own cell centers (global: x0 is the
+    global plane of a slab's plane 0)."""
     nx, wy_o, nz = old_cfg.grid_res
     wy_n = new_cfg.grid_res[1]
 
@@ -74,7 +79,7 @@ def _resize(state: bucketed.BucketState, old_cfg: SimConfig,
 
     mass = r(state.mass, 0.0)
     occ = mass > 0
-    center = bucketed.cell_coords(new_cfg, state.device, state.pos.dtype) + 0.5
+    center = bucketed.cell_coords(new_cfg, state.device, state.pos.dtype, x0) + 0.5
     zero = torch.zeros((), dtype=state.vel.dtype, device=state.device)
     return state.replace(
         pos=torch.where(occ[None], r(state.pos, 0.0), center[:, None, :]).contiguous(),
@@ -95,11 +100,13 @@ class YWindow:
     `win.config` is the current windowed SimConfig, `win.wy` the window
     height, `win.interference` the total ceiling hits observed (0 means the
     windowed run equals the full-grid run). One YWindow per simulation.
+    With `mesh` (a parallel.domain.SlabMesh) the state is a ShardedState
+    and the chunks run the sharded step.
     """
 
     def __init__(self, config: SimConfig, mode: str = "auto",
                  substeps: int | None = None, quantum: int = 8,
-                 headroom: int | None = None):
+                 headroom: int | None = None, mesh=None):
         # headroom: planes kept above the last observed surface. The default
         # substeps + 5 covers a chunk's worst-case rise (1 cell per substep)
         # plus the ceiling band, so the band is never reached. Tighter values
@@ -109,6 +116,7 @@ class YWindow:
             raise ValueError("YWindow supports 3D configs")
         self.true_config = config
         self.mode = mode
+        self.mesh = mesh
         self.S = substeps if substeps is not None else config.substeps
         self.headroom = headroom if headroom is not None else self.S + 5
         if self.headroom < 4:
@@ -128,8 +136,14 @@ class YWindow:
 
     def _frame_fn(self, wy: int) -> Callable:
         if wy not in self._frames:
-            self._frames[wy] = make_frame_fn(window_config(self.true_config, wy),
-                                             mode=self.mode, substeps=self.S)
+            wcfg = window_config(self.true_config, wy)
+            if self.mesh is not None:
+                from ..parallel.domain import make_sharded_bucket_step
+
+                self._frames[wy] = make_sharded_bucket_step(wcfg, self.mesh, self.S,
+                                                            mode=self.mode)
+            else:
+                self._frames[wy] = make_frame_fn(wcfg, mode=self.mode, substeps=self.S)
         return self._frames[wy]
 
     def _target_wy(self, maxy: int) -> int:
@@ -137,10 +151,14 @@ class YWindow:
         wy = max(self.q, math.ceil((maxy + self.headroom) / self.q) * self.q)
         return min(ny, wy)
 
-    def _observe(self, state: bucketed.BucketState) -> int:
+    def _observe(self, state) -> int:
         """Read (max y, ceiling) back; returns the new ceiling hits."""
-        nx, _, nz = self.true_config.grid_res
-        maxy, ceil = _poll_vals(state, nx, self.wy, nz).tolist()
+        nz = self.true_config.grid_res[2]
+        if self.mesh is None:
+            maxy, ceil = _poll_vals(state, self.wy, nz).tolist()
+        else:  # max y over the slabs; the counter is already the total
+            maxy = max(int(_poll_vals(s, self.wy, nz)[0]) for s in state.slabs)
+            ceil = int(state.ceiling)
         self._confirmed = maxy
         hits = ceil - self._ceil_seen
         self._ceil_seen = ceil
@@ -148,15 +166,31 @@ class YWindow:
             self.interference += hits
         return max(hits, 0)
 
-    def init(self, state: SimState) -> bucketed.BucketState:
+    def init(self, state: SimState):
         maxy = int(torch.floor(state.pos[1]).max())
         self._confirmed = maxy
         self._ceil_seen = 0
         self.wy = self._target_wy(maxy)
-        return bucketed.from_simstate(state, self.config)
+        b = bucketed.from_simstate(state, self.config)
+        if self.mesh is not None:
+            from ..parallel.domain import shard_bucket_state
 
-    def step(self, state: bucketed.BucketState, fp: FluidParams,
-             interactions: Sequence[Interaction] = ()) -> bucketed.BucketState:
+            b = shard_bucket_state(b, self.config, self.mesh)
+        return b
+
+    def _resize_state(self, state, wy_new: int):
+        old = window_config(self.true_config, self.wy)
+        new = window_config(self.true_config, wy_new)
+        if self.mesh is None:
+            return _resize(state, old, new)
+        from ..parallel.domain import ShardedState, slab_planes
+
+        loc = slab_planes(old, self.mesh.n)
+        return ShardedState([
+            _resize(s, bucketed.slab_config(old, loc), bucketed.slab_config(new, loc), a * loc)
+            for a, s in enumerate(state.slabs)])
+
+    def step(self, state, fp: FluidParams, interactions: Sequence[Interaction] = ()):
         state = self._frame_fn(self.wy)(state, fp, interactions)
         hits = self._observe(state)
         ny = self.true_config.grid_res[1]
@@ -168,8 +202,7 @@ class YWindow:
             if not (need > self.wy or need <= self.wy - 2 * self.q):
                 return state
         if need != self.wy:
-            state = _resize(state, window_config(self.true_config, self.wy),
-                            window_config(self.true_config, need))
+            state = self._resize_state(state, need)
             self.wy = need
             self.resizes += 1
         return state

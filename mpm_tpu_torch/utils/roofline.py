@@ -201,3 +201,36 @@ def g2p_work(state, config) -> tuple[int, int]:
     nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos)
               + 4 * d * _occupied_cells(state) + _nbytes(state.vel, state.C))
     return nbytes, n * (_weight_ops(d) + 3**d * (2 * d * d + 2 * d) + d * d)
+
+
+def _slab_grid_cells(config) -> int:
+    """Cells of a slab's grid: one plane more than the slab on each side."""
+    return config.num_cells // config.grid_res[0] * (config.grid_res[0] + 2)
+
+
+def p2g1_shard_work(padded, config) -> tuple[int, int]:
+    """(bytes, operations) of the sharded stage 1 on a padded slab under its
+    slab config: mass, and pos, vel and C of the occupied slots in; the
+    grid mass and pass-1 momentum of the slab's grid out."""
+    n, d = _occupied(padded), config.dim
+    nbytes = (_nbytes(padded.mass) + _slot_bytes(n, padded.pos, padded.vel, padded.C)
+              + 4 * _slab_grid_cells(config) * (d + 1))
+    ops = n * (_weight_ops(d) + _p2g1_ops(d))
+    if config.fixed_point:  # pass 1's encodes (D + 1 a tap)
+        ops += n * 3**d * (d + 1) * 2
+    return nbytes, ops
+
+
+def p2g2u_shard_work(padded, config) -> tuple[int, int]:
+    """(bytes, operations) of the sharded stage 2: mass, and pos and C of
+    the occupied slots, the grid mass of every grid cell and the pass-1
+    momentum of the occupied cells in; the grid velocity out. The update
+    counts 4D operations a cell that holds a slot."""
+    n, d, cells = _occupied(padded), padded.dim, _occupied_cells(padded)
+    gc = _slab_grid_cells(config)
+    nbytes = (_nbytes(padded.mass) + _slot_bytes(n, padded.pos, padded.C) + 4 * gc
+              + 4 * d * cells + 4 * d * gc)
+    ops = n * (_weight_ops(d) + _coef_ops(d) + _p2g2_ops(d, config.legacy_strain)) + cells * 4 * d
+    if config.fixed_point:  # pass 2's encodes, the decodes and the re-encode
+        ops += n * 3**d * d * 2 + cells * (3 * d + 2)
+    return nbytes, ops

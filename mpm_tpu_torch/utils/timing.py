@@ -16,8 +16,12 @@ import torch
 
 
 def fence(state) -> None:
-    """Wait until the device of `state` (a tensor or an object with a
-    `pos` tensor) has finished all queued work."""
+    """Wait until the device of `state` (a tensor, an object with a `pos`
+    tensor, or a sharded state's `slabs`) has finished all queued work."""
+    if hasattr(state, "slabs"):
+        for s in state.slabs:
+            fence(s)
+        return
     t = state if isinstance(state, torch.Tensor) else state.pos
     if t.device.type == "cuda":
         torch.cuda.synchronize(t.device)

@@ -123,8 +123,8 @@ def test_convert_round_trip(storage):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and chip_smoke.py, leaves jax and
-    mpm_tpu out of sys.modules."""
+    """Importing every module of the port (the parallel package included),
+    and chip_smoke.py, leaves jax and mpm_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mpm_tpu_torch\n"
@@ -133,6 +133,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpm_tpu')]\n"
         "assert not bad, bad\n"
+        "assert {'mpm_tpu_torch.parallel.domain', 'mpm_tpu_torch.parallel.render',\n"
+        "        'mpm_tpu_torch.ops.cuda.p2g_shard'} <= set(sys.modules)\n"
         "print('ok', len([m for m in sys.modules if m.startswith('mpm_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -144,10 +146,12 @@ def test_port_imports_no_jax():
 
 def test_sim_path_imports_no_renderer():
     """The simulation's entry points and kernel wrappers, kernel F's splat
-    emission included, load without the renderer: ops never imports render."""
+    emission and the slab decomposition included, load without the
+    renderer: ops and parallel.domain never import render."""
     code = (
         "import sys\n"
         "import mpm_tpu_torch, mpm_tpu_torch.ops.cuda.step, mpm_tpu_torch.ops.cuda.g2p_migrate\n"
+        "import mpm_tpu_torch.parallel, mpm_tpu_torch.ops.cuda.p2g_shard\n"
         "bad = [m for m in sys.modules if m.startswith('mpm_tpu_torch.render')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -1,7 +1,9 @@
 """Kernels P, F, X and BL against their plain PyTorch versions on a CUDA
 card, at the small scene of tests/test_fused.py, P and F also in
-fixed-point mode, the per-pass kernels A, B, D and E there too, and the 2D
-kernels sim2d and migrate2d at dam_break_2d's size. Every test needs the card and skips
+fixed-point mode, the per-pass kernels A, B, D and E there too, the two
+sharded stages of P and F's shard mode (and the sharded step against the
+unsharded one), and the 2D kernels sim2d and migrate2d at dam_break_2d's
+size. Every test needs the card and skips
 without one. They import no JAX, so on a machine without JAX run them with
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -11,23 +13,27 @@ plain version's arithmetic operation for operation and build without fused
 multiply-adds, so they are expected to agree with it bit for bit.
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from mpm_tpu_torch.core.state import Grid
 from mpm_tpu_torch.models.scenes import dam_break_2d, fluid_2d_friction, fluid_3d
 from mpm_tpu_torch.ops import bucketed
 from mpm_tpu_torch.ops import fixed_point
 from mpm_tpu_torch.ops.cuda import g2p_migrate as kf
 from mpm_tpu_torch.ops.cuda import migrate_planes as ke
+from mpm_tpu_torch.ops.cuda import p2g_shard as ks
 from mpm_tpu_torch.ops.cuda import p2g_update as kp
 from mpm_tpu_torch.ops.cuda import planes
 from mpm_tpu_torch.ops.cuda import substep2d as k2d
 from mpm_tpu_torch.ops.interact import Interaction
 from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.ops.window import window_config
+from mpm_tpu_torch.parallel import domain
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -438,3 +444,69 @@ def test_kernel_bl_matches_plain(dev, shape):
     assert kb.launches == n0 + 1
     want = kb.blur_depth_plain(d, cam, **kw)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("storage, fixed", [("float32", False), ("bfloat16", False),
+                                            ("float32", True)])
+def test_shard_kernels_match_plain(dev, storage, fixed):
+    """The two sharded stages of kernel P and kernel F in shard mode on each
+    of 4 padded slabs, fed the plain versions' exchanged grids: bit for
+    bit their plain versions."""
+    config, fluid, state = _scene(dev, storage, fixed_point=fixed)
+    state = _warm(state, config, fluid)
+    loc, pc = 4, 256
+    padded = domain._exchange_state_halo(
+        domain.shard_bucket_state(state, config, domain.SlabMesh.on(dev, 4)).slabs, pc)
+    cfg = bucketed.slab_config(config, loc + 4)
+    x0s = [a * loc - 2 for a in range(4)]
+    g1 = [ks.p2g1_shard_plain(p, cfg, fluid, x0) for p, x0 in zip(padded, x0s)]
+    gm = domain._exchange_grid([g.mass for g in g1], loc, pc)
+    n0 = (ks.p2g1_launches, ks.p2g2u_launches, kf.shard_launches)
+    for p, x0, g, m in zip(padded, x0s, g1, gm):
+        got = ks.p2g1_shard(p, cfg, fluid, x0)
+        assert torch.equal(got.mass, g.mass) and torch.equal(got.mom, g.mom)
+        grid1 = Grid(mom=g.mom, mass=m)
+        gv = ks.p2g2u_shard_plain(p, grid1, cfg, fluid, x0)
+        assert torch.equal(ks.p2g2u_shard(p, grid1, cfg, fluid, x0), gv)
+        slab = bucketed.Slab(x0=x0, go=1, c_lo=2, c_hi=loc + 1)
+        # the stage-2 output as the grid velocity: its end planes are not
+        # exchanged here, which is the same input for both versions
+        out = kf.g2p_migrate(p, Grid(mom=gv, mass=m), cfg, fluid, slab=slab)
+        want = kf.g2p_migrate_plain(p, Grid(mom=gv, mass=m), cfg, fluid, slab=slab)
+        for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred",
+                  "ceiling"):
+            assert torch.equal(getattr(out, f), getattr(want, f)), f
+    torch.cuda.synchronize()
+    assert (ks.p2g1_launches, ks.p2g2u_launches, kf.shard_launches) == tuple(x + 4 for x in n0)
+
+
+@pytest.mark.parametrize("n_slabs", [2, 4, 8])
+def test_sharded_step_equals_unsharded_kernels(dev, n_slabs):
+    """3 sharded substeps through the kernels on n_slabs slabs of the card
+    equal 3 substeps of kernels P and F slot for slot, counters included,
+    under gravity -10 (moves deferred at the slab boundaries)."""
+    config, fluid, state = _scene(dev)
+    fluid = dataclasses.replace(fluid, gravity=torch.tensor([0.0, -10.0, 0.0]))
+    want = make_step(config, mode="cuda", substeps=3)(state, fluid)
+    mesh = domain.SlabMesh.on(dev, n_slabs)
+    out = domain.make_sharded_bucket_step(config, mesh, substeps=3)(
+        domain.shard_bucket_state(state, config, mesh), fluid)
+    got = domain.gather_bucket_state(out)
+    for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(got.deferred) > 0
+
+
+def test_sharded_fixed_step_equals_unsharded_kernels(dev):
+    """The same on 4 slabs with an int32 fixed-point grid: the sharded
+    kernels equal fixed-mode P and F slot for slot, counters included."""
+    config, fluid, state = _scene(dev, fixed_point=True)
+    fluid = dataclasses.replace(fluid, gravity=torch.tensor([0.0, -10.0, 0.0]))
+    want = make_step(config, mode="cuda", substeps=3)(state, fluid)
+    mesh = domain.SlabMesh.on(dev, 4)
+    out = domain.make_sharded_bucket_step(config, mesh, substeps=3)(
+        domain.shard_bucket_state(state, config, mesh), fluid)
+    got = domain.gather_bucket_state(out)
+    for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(got.deferred) > 0

@@ -1,0 +1,116 @@
+"""Shared cases of the sharded-step tests (tests/test_torch_sharded.py and
+tests/test_torch_sharded_fixed.py, two files so that each stays short on
+one test worker): the 16^3 scene of tests/test_sharded.py (K=8) in both
+packages, its references, and the bars.
+
+Bars. Against the JAX XLA engine (mpm_tpu.ops.bucketed.substep), 3
+substeps: the JAX package's sharded bars (tests/test_sharded.py): ids
+equal, pos 1e-6, vel and C 1e-5 (bf16 rtol 0.01), counters equal; fixed
+point at the same float bars, since the port's fixed engine is not
+bit-exact with XLA's, which contracts to fused multiply-adds
+(tests/test_torch_fixed_point.py). Within the port the sharded step equals
+the unsharded one bit for bit, counters included."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from mpm_tpu.models.scenes import fluid_3d as jfluid_3d
+from mpm_tpu.ops import bucketed as jb
+from mpm_tpu_torch.models.scenes import fluid_3d
+from mpm_tpu_torch.ops import bucketed as tb
+from mpm_tpu_torch.ops.step import make_step
+from mpm_tpu_torch.parallel import domain
+
+FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling")
+STORAGE = {"f32": {}, "bf16": {"storage_dtype": "bfloat16"}, "fixed": {"fixed_point": True}}
+
+
+@functools.lru_cache(maxsize=None)
+def scenes():
+    """(jax scene, port scene, port fluid with gravity -10). Gravity -10
+    crowds cells at the slab boundaries, so that the deferred and CFL
+    counters and their plane gate are exercised; at the scene's gravity
+    both stay 0."""
+    j = jfluid_3d(grid_res=16, box=8.0, spacing=0.8)
+    t = fluid_3d(grid_res=16, box=8.0, spacing=0.8, device="cpu")
+    heavy = dataclasses.replace(t.fluid, gravity=torch.tensor([0.0, -10.0, 0.0]))
+    return j, t, heavy
+
+
+def configs(storage):
+    j, t, _ = scenes()
+    kw = STORAGE[storage]
+    return j.config.replace(bin_capacity=8, **kw), t.config.replace(bin_capacity=8, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def initial(storage) -> tb.BucketState:
+    return tb.from_simstate(scenes()[1].state, configs(storage)[1])
+
+
+@functools.lru_cache(maxsize=None)
+def references(storage, heavy: bool):
+    """(3 substeps of the port's unsharded plain engine, and at the scene's
+    gravity 3 substeps of the JAX XLA engine as numpy arrays by field)."""
+    jcfg, tcfg = configs(storage)
+    j, t, g10 = scenes()
+    ref = make_step(tcfg, mode="bucketed", substeps=3)(initial(storage), g10 if heavy else t.fluid)
+    if heavy:
+        return ref, None
+    step = jax.jit(lambda b, f: jb.substep(b, jcfg, f, ()))
+    # the port's packing equals the JAX package's slot for slot
+    # (tests/test_torch_bucketed.py), so JAX starts from the same arrays
+    b0 = initial(storage)
+    jstate = jb.BucketState(*(jnp.asarray(getattr(b0, f).float().numpy()).astype(jnp.bfloat16)
+                              if getattr(b0, f).dtype == torch.bfloat16
+                              else jnp.asarray(getattr(b0, f).numpy()) for f in FIELDS))
+    for _ in range(3):
+        jstate = step(jstate, j.fluid)
+    return ref, {f: np.asarray(getattr(jstate, f)) for f in FIELDS}
+
+
+def sharded(storage, n_slabs, heavy: bool) -> tb.BucketState:
+    """3 sharded substeps on n_slabs CPU slabs, gathered."""
+    _, tcfg = configs(storage)
+    mesh = domain.SlabMesh.on("cpu", n_slabs)
+    fluid = scenes()[2] if heavy else scenes()[1].fluid
+    out = domain.make_sharded_bucket_step(tcfg, mesh, substeps=3)(
+        domain.shard_bucket_state(initial(storage), tcfg, mesh), fluid)
+    assert len(out.slabs) == n_slabs
+    return domain.gather_bucket_state(out)
+
+
+def assert_bit_equal(got, want):
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def check_matrix_case(storage, n_slabs):
+    """The sharded step at the scene's gravity: bit for bit the port's
+    unsharded engine, and within the bars of the JAX XLA engine."""
+    ref, want = references(storage, False)
+    got = sharded(storage, n_slabs, False)
+    assert_bit_equal(got, ref)
+    np.testing.assert_array_equal(got.ids.numpy(), want["ids"])
+    np.testing.assert_allclose(got.pos.numpy(), want["pos"], rtol=0, atol=1e-6)
+    for f in ("vel", "C"):
+        if storage == "bf16":
+            np.testing.assert_allclose(getattr(got, f).float().numpy(),
+                                       want[f].astype(np.float32), rtol=0.01, atol=1e-4)
+        else:
+            np.testing.assert_allclose(getattr(got, f).numpy(), want[f], rtol=0, atol=1e-5)
+    for f in ("lost", "deferred", "cfl_clamped", "ceiling"):
+        assert int(getattr(got, f)) == int(want[f]), f
+
+
+def check_counts_case(storage):
+    """Gravity -10 on 8 slabs of 2 planes: bit for bit the unsharded engine,
+    with deferred moves and CFL clamps counted once across the slabs."""
+    got = sharded(storage, 8, True)
+    assert_bit_equal(got, references(storage, True)[0])
+    assert int(got.deferred) > 0 and int(got.cfl_clamped) > 0 and int(got.lost) == 0
