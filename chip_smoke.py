@@ -16,7 +16,10 @@ sharded 640x360 frame on 4 slabs; the 1M dam-break; the 100k 2D benchmark
 and its frame; fluid_3d through the per-pass kernels under
 MPM_PALLAS_OLD=1; the fixed-point scene S4; config 5, 16M particles on
 256^3 under the air window on 4 slabs, beside the same window unsharded),
-runs the CLI (`--shards 1` too), and times each kernel beside its plain
+holds the redesigned migration and pass 2 against their plain versions bit
+for bit under stress (a config-5 slab under a random grid velocity, and the
+card tests' stress cases), runs the CLI (`--shards 1` too), and times each
+kernel beside its plain
 version and its roofline bound. Every main path runs with the launch counts set to 0 just before it
 and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
@@ -682,12 +685,66 @@ def run_config5(dev, smi: str, **kw):
     return shard_launches, state, cfg, sc.fluid
 
 
+STATE_FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling")
+
+
+def assert_bit_equal(got, want, label: str) -> None:
+    differ = [f for f in STATE_FIELDS if not torch.equal(getattr(got, f), getattr(want, f))]
+    if differ:
+        raise AssertionError(f"{label}: differs from the plain version in {differ}")
+
+
+def stress_grid(config, fluid, dev, seed: int) -> Grid:
+    """A random grid velocity that moves particles up to 1.5 cells a
+    substep along every axis (tests/test_torch_cuda.py's stress grid)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    gv = (torch.rand((config.dim, config.num_cells), generator=gen) * 2 - 1) * (
+        1.5 / float(fluid.dt))
+    if config.fixed_point:
+        gv = fixed_point.encode(gv, config.fixed_point_mult)
+    return Grid(mom=gv.to(dev).contiguous(), mass=None)
+
+
+def phase_stress_tests() -> None:
+    """The card tests of the migration's choose / move split and of pass 2's
+    staged tiles (tests/test_torch_cuda.py: deferred moves, lost > 0 at
+    K=4, the ceiling band, f32, bf16 and fixed point, D = 2 and 3, slabs
+    with their counter gate, legacy strain on a 61 x 53 x 67 grid), each
+    bit for bit its plain version."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+           os.path.join(ROOT, "tests", "test_torch_cuda.py"), "-k", "stress or odd_grid"]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    last = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    if res.returncode != 0 or " passed" not in last or "failed" in last or "skipped" in last:
+        raise AssertionError(f"stress card tests failed (rc {res.returncode}):\n"
+                             f"{res.stdout[-4000:]}\n{res.stderr[-2000:]}")
+    phase("stress", f"tests/test_torch_cuda.py -k 'stress or odd_grid': {last}")
+
+
 def phase_shard_times(state, config, fluid, time_pair) -> None:
     """The shard kernels' times on slab 1 of config 5's settled window,
-    beside their plain versions and bounds (utils/roofline.py)."""
+    beside their plain versions and bounds (utils/roofline.py); before
+    them, stage 2 and F's shard mode on that slab bit for bit their plain
+    versions, F also under a random grid velocity that defers moves and
+    counts on the slab's own planes only."""
     padded, cfg, x0s, g1, gv, gates = shard_inputs(state, config, fluid)
     p, x0, g, v, gate = padded[1], x0s[1], g1[1], gv[1], gates[1]
     shape = f"config 5 slab 1 of {SLABS}: {cfg.grid_res} K={cfg.bin_capacity} bf16"
+    if not torch.equal(ks.p2g2u_shard(p, g, cfg, fluid, x0),
+                       ks.p2g2u_shard_plain(p, g, cfg, fluid, x0)):
+        raise AssertionError(f"p2g2u_shard differs from its plain version at {shape}")
+    assert_bit_equal(kf.g2p_migrate(p, v, cfg, fluid, slab=gate),
+                     kf.g2p_migrate_plain(p, v, cfg, fluid, slab=gate), f"F shard mode, {shape}")
+    rand = stress_grid(bucketed.slab_config(cfg, cfg.grid_res[0] + 2), fluid, p.pos.device, 17)
+    want = kf.g2p_migrate_plain(p, rand, cfg, fluid, slab=gate)
+    assert_bit_equal(kf.g2p_migrate(p, rand, cfg, fluid, slab=gate), want,
+                     f"F shard mode under a random grid velocity, {shape}")
+    if int(want.deferred) <= 0:
+        raise AssertionError("the random grid velocity deferred no move")
+    phase("stress", f"{shape}: p2g2u_shard and F's shard mode bit-equal to their plain "
+          f"versions; under a random grid velocity too (own planes {gate.c_lo}-{gate.c_hi}: "
+          + " ".join(f"{n}={int(getattr(want, n))}" for n in STATE_FIELDS[5:]) + ")")
+    del rand, want
     time_pair("p2g1_shard", lambda: ks.p2g1_shard(p, cfg, fluid, x0),
               lambda: ks.p2g1_shard_plain(p, cfg, fluid, x0), shape,
               roofline.p2g1_shard_work(p, cfg))
@@ -1026,6 +1083,7 @@ def main() -> None:
     launches_shard, s5, cfg5, fluid5 = run_config5(dev, smi)
     phase_shard_times(s5, cfg5, fluid5, time_pair)
     del s5
+    phase_stress_tests()
 
     # 8. CLI
     cmd = [sys.executable, "-m", "mpm_tpu_torch", "run", "fluid_3d", "--frames", "5",

@@ -26,11 +26,14 @@
 //   p2g_mass_mom    one thread per cell: pass-1 mass and APIC momentum.
 //   p2g_coef        one thread per slot: density gather, EOS, the a_p and
 //                   b_mu force coefficients.
-//   p2g_force_grid  one thread per cell: pass-2 force (legacy strain
-//                   optional) added to the momentum, then the grid update:
-//                   momentum over mass, gravity, slip / stick / friction
-//                   bands against the true domain dres.
-//   p2g_force       the same pass 2 from zero, without the update (B).
+//   p2g_force_tile  one block per tile of nodes, one thread per node: the
+//                   tile's and its halo's occupied slots staged in shared
+//                   memory once, then the pass-2 force (legacy strain
+//                   optional) summed tap by tap in registers and added to
+//                   the momentum, then the grid update: momentum over mass,
+//                   gravity, slip / stick / friction bands against the true
+//                   domain dres (kernel P); or pass 2 from zero without the
+//                   update (B).
 //   g2p_tail        one thread per slot: G2P gather, C = 4B, then the tail
 //                   of bucketed.g2p_bucketed: advect, clamp against dres,
 //                   interactions, wall springs, the CFL clamp and its count;
@@ -38,10 +41,10 @@
 //                   to the storage type only at the store.
 //   g2p_vc          the same gather, vel and C = 4B only, zero at empty
 //                   slots (D).
-// The two gathers are device functions (p2g_force_gather, g2p_gather)
-// shared by their two users, so one source keeps the rounding. A
-// fixed-point grid encodes each slot's contribution (bucketed._encode) and
-// decodes where the plain version decodes.
+// The G2P gather is a device function (g2p_gather) shared by its two users,
+// so one source keeps the rounding. A fixed-point grid encodes each slot's
+// contribution (bucketed._encode) and decodes where the plain version
+// decodes.
 //   migrate_reject  one thread per source cell, per axis phase: the
 //                   conservative rule occ0(dest) + i < K, where a
 //                   left-mover's i also counts the right-movers of cell - 2,
@@ -50,8 +53,11 @@
 //                   into the cell for rejected movers.
 //   migrate_select  one thread per destination cell: its 3K candidates in
 //                   [stay, from-left, from-right] slot order, the first K
-//                   written out of place, the rest zeroed (ids -1), any
-//                   excess counted in `lost`.
+//                   written out of place, the rest zeroed (index -1), any
+//                   excess counted in `lost`. It moves positions, mass and
+//                   each slot's index into the migration's input only.
+//   migrate_gather  one thread per output slot, after the last phase: vel,
+//                   C and ids moved once, through the composed index.
 #pragma once
 
 #include <type_traits>
@@ -191,84 +197,237 @@ __global__ void p2g_coef(const float* __restrict__ pos, const float* __restrict_
   b_mu[i] = coef * p.mu;
 }
 
-// Pass 2 at node x (state coordinates): the force contributions (legacy
-// strain optional) of the 3^D buckets around it, each bucket's slots
-// summed in slot order, added to acc tap by tap. Shared by kernel P, its
-// sharded stage 2 and the per-pass kernel B.
-template <int D, typename VC, typename GT, class Params>
-__device__ __forceinline__ void p2g_force_gather(const int (&x)[D], const float* __restrict__ pos,
-                                                 const VC* __restrict__ Cm,
-                                                 const float* __restrict__ mass,
-                                                 const float* __restrict__ a_p,
-                                                 const float* __restrict__ b_mu, GT (&acc)[D],
-                                                 const Params& p, const Slab& s) {
-  using G = GridCoding<GT>;
-  const GridGeom<D>& g = p.g;
-  const float mult = grid_mult<GT>(p);
-  const size_t KC = (size_t)g.K * g.C;
-#pragma unroll
-  for (int t = 0; t < NTAPS<D>; ++t) {
-    int tt[D], bx[D], r[D];
-    float cb[D];
-    tap_digits(t, tt);
-    for (int a = 0; a < D; ++a) {
-      bx[a] = x[a] + tt[a] - 1;
-      r[a] = 2 - tt[a];
-      cb[a] = (global_coord(s, a, x[a]) + 0.5f) + (float)(tt[a] - 1);
-    }
-    if (!in_grid(g, bx)) continue;
-    const int b = flat(g, bx);
-    GT part[D];
-    for (int a = 0; a < D; ++a) part[a] = 0;
-    for (int k = 0; k < g.K; ++k) {
-      const size_t i = (size_t)k * g.C + b;
-      if (!(mass[i] > 0.f)) continue;
-      float d[D], dist[D], Cl[D * D], S[D * D];
-      for (int a = 0; a < D; ++a) d[a] = pos[a * KC + i] - cb[a];
-      const float w = tap_weight(r, d);
-      for (int a = 0; a < D; ++a) dist[a] = (float)(r[a] - 1) - d[a];
-      for (int a = 0; a < D * D; ++a) Cl[a] = load_vc(Cm, a * KC + i);
-      if (p.legacy_strain) {
-        // S = C + C^T - I * C^T (MLSMPM2DFluid.cs:276-281): off-diagonal
-        // entries symmetrised, the diagonal C_ii left unscaled
-        for (int u = 0; u < D; ++u)
-          for (int v = 0; v < D; ++v) {
-            const float sum = Cl[u * D + v] + Cl[v * D + u];
-            S[u * D + v] = u == v ? sum - Cl[v * D + u] : sum;
-          }
-      }
-      const float ap = a_p[i], bm = b_mu[i];
-      for (int a = 0; a < D; ++a) {
-        const float sd = p.legacy_strain
-                             ? matvec_row<D>(S, a, dist)
-                             : matvec_row<D>(Cl, a, dist) + matvec_t_row<D>(Cl, a, dist);
-        part[a] = G::add(part[a], G::enc(w * (ap * dist[a] + bm * sd), mult));
-      }
-    }
-    for (int a = 0; a < D; ++a) acc[a] = G::add(acc[a], part[a]);
-  }
+// Pass 2 (p2g_force_tile): one block per tile of grid nodes. What the
+// per-node gather of earlier versions lost its time to was reloading every
+// slot's pos, C (converted from bf16 each time), a_p and b_mu once for each
+// of the 3^D nodes it reaches, through L1/L2, one slot after another. Here
+// the block stages the occupied slots of the tile's buckets and their halo
+// ((tile + 2)^D buckets) in shared memory once, a chunk of FT::KS slot
+// indices at a time, as f32 records (pos, a_p, b_mu and C, or S = C + C^T -
+// I * C^T under legacy strain), and each thread, one per node, keeps the
+// 3^D taps' partial sums in registers: a tap's partial takes the bucket's
+// slots in slot order across chunks, and the partials are added to the
+// node's accumulator in tap order after the last chunk. Those are the
+// operations of the per-node gather in its order, so the result is the
+// same bit for bit. Empty slots add nothing and are skipped, as before.
+template <int D>
+struct ForceTile;
+template <>
+struct ForceTile<3> {
+  static constexpr int NG = 4;          // float4 groups a record
+  static constexpr int KS = 2;          // slot indices a chunk
+  static constexpr int MIN_BLOCKS = 2;  // per SM: <= 128 registers a thread
+};
+template <>
+struct ForceTile<2> {
+  static constexpr int NG = 2;
+  static constexpr int KS = 4;
+  static constexpr int MIN_BLOCKS = 4;
+};
+// The tile's extent on axis a: 2 x 8 x 16 nodes (D=3), 8 x 32 (D=2), the
+// last axis fastest, so a warp's lanes hold neighbouring nodes.
+template <int D>
+__host__ __device__ constexpr int tile_dim(int a) {
+  return D == 3 ? (a == 0 ? 2 : a == 1 ? 8 : 16) : (a == 0 ? 8 : 32);
+}
+template <int D>
+__host__ __device__ constexpr int tile_nodes() {
+  return D == 3 ? tile_dim<3>(0) * tile_dim<3>(1) * tile_dim<3>(2)
+                : tile_dim<2>(0) * tile_dim<2>(1);
+}
+template <int D>
+__host__ __device__ constexpr int tile_buckets() {  // the tile's buckets and their halo
+  return D == 3 ? (tile_dim<3>(0) + 2) * (tile_dim<3>(1) + 2) * (tile_dim<3>(2) + 2)
+                : (tile_dim<2>(0) + 2) * (tile_dim<2>(1) + 2);
+}
+template <int D>
+__host__ __device__ constexpr size_t force_tile_smem() {  // records, occupancy masks, chunk count
+  return (size_t)ForceTile<D>::KS * ForceTile<D>::NG * tile_buckets<D>() * sizeof(float4) +
+         tile_buckets<D>() * sizeof(unsigned) + sizeof(int);
 }
 
-// Kernel P's last launch: pass 2 added to the pass-1 momentum, then the
-// grid update. A fixed-point grid is decoded for the update and its
-// velocity encoded again. One thread per node of grid_geom(p.g, s).
-template <int D, typename VC, typename GT, class Params>
-__global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restrict__ Cm,
-                               const float* __restrict__ mass, const float* __restrict__ a_p,
-                               const float* __restrict__ b_mu, const GT* __restrict__ gmass,
-                               const GT* __restrict__ gmom, GT* __restrict__ gvel, Params p,
-                               Slab s) {
+// Record layout: D=3 [p0 p1 p2 ap] [bm M0 M1 M2] [M3 .. M6] [M7 M8 - -];
+// D=2 [p0 p1 ap bm] [M0 .. M3]; M is C, or S under legacy strain.
+template <int D>
+__device__ __forceinline__ int rec_pos(int a) { return a; }
+template <int D>
+__device__ __forceinline__ int rec_ap() { return D; }
+template <int D>
+__device__ __forceinline__ int rec_bm() { return D + 1; }
+template <int D>
+__device__ __forceinline__ int rec_m(int e) { return D + 2 + e; }
+
+// Pass 2 added to acc0 (UPDATE: kernel P's pass-1 momentum gmom, then the
+// grid update into gvel; else from zero into out, the per-pass kernel B).
+// One thread per node of a tile of grid_geom(p.g, s); x below is the
+// node's state coordinate (go planes below its grid plane).
+template <int D, typename VC, typename GT, bool UPDATE, class Params>
+__global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
+    p2g_force_tile(const float* __restrict__ pos, const VC* __restrict__ Cm,
+                   const float* __restrict__ mass, const float* __restrict__ a_p,
+                   const float* __restrict__ b_mu, const GT* __restrict__ gmass,
+                   const GT* __restrict__ gmom, GT* __restrict__ out, Params p, Slab s) {
   using G = GridCoding<GT>;
-  const GridGeom<D> gg = grid_geom(p.g, s);
+  using FT = ForceTile<D>;
+  constexpr int HB = tile_buckets<D>();
+  constexpr int NG = FT::NG, KS = FT::KS;
+  constexpr int NR = NG * 4;  // floats a record
+  extern __shared__ float4 smem[];
+  float4* rec = smem;                                     // [KS][NG][HB]
+  unsigned* occ = (unsigned*)(rec + KS * NG * HB);        // [HB] slot bits
+  int* kmax = (int*)(occ + HB);
+  const GridGeom<D>& g = p.g;
+  const GridGeom<D> gg = grid_geom(g, s);
   const float mult = grid_mult<GT>(p);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= gg.C) return;
-  int x[D];
-  cell_coords(gg, c, x);
-  x[0] -= s.go;
+  const size_t KC = (size_t)g.K * g.C;
+
+  // the tile's first node, in state coordinates, and the halo's extents
+  int t0[D], hn[D];
+  {
+    int b = blockIdx.x;
+    for (int a = D - 1; a >= 0; --a) {
+      const int nt = (gg.n[a] + tile_dim<D>(a) - 1) / tile_dim<D>(a);
+      t0[a] = (b % nt) * tile_dim<D>(a);
+      b /= nt;
+    }
+    t0[0] -= s.go;
+    for (int a = 0; a < D; ++a) hn[a] = tile_dim<D>(a) + 2;
+  }
+  // halo bucket h (last axis fastest) is state cell t0 + hc - 1
+  auto halo_cell = [&](int h, int (&bx)[D]) {
+    for (int a = D - 1; a >= 0; --a) {
+      bx[a] = t0[a] + h % hn[a] - 1;
+      h /= hn[a];
+    }
+  };
+
+  if (threadIdx.x == 0) *kmax = 0;
+  __syncthreads();
+  for (int h = threadIdx.x; h < HB; h += blockDim.x) {
+    int bx[D];
+    halo_cell(h, bx);
+    unsigned bits = 0;
+    if (in_grid(g, bx)) {
+      const int b = flat(g, bx);
+      for (int k = 0; k < g.K; ++k)
+        if (mass[(size_t)k * g.C + b] > 0.f) bits |= 1u << k;
+    }
+    occ[h] = bits;
+    if (bits) atomicMax(kmax, 32 - __clz(bits));
+  }
+
+  // this thread's node
+  int lx[D], x[D];
+  {
+    int r = threadIdx.x;
+    for (int a = D - 1; a >= 0; --a) {
+      lx[a] = r % tile_dim<D>(a);
+      r /= tile_dim<D>(a);
+    }
+  }
+  bool valid = true;
+  for (int a = 0; a < D; ++a) {
+    x[a] = t0[a] + lx[a];
+    valid = valid && x[a] + (a == 0 ? s.go : 0) < gg.n[a];
+  }
+  GT part[NTAPS<D>][D];
+#pragma unroll
+  for (int t = 0; t < NTAPS<D>; ++t)
+#pragma unroll
+    for (int a = 0; a < D; ++a) part[t][a] = 0;
+  __syncthreads();
+  const int kend = *kmax;
+
+  for (int k0 = 0; k0 < kend; k0 += KS) {
+    if (k0) __syncthreads();  // the previous chunk is consumed
+    for (int e = threadIdx.x; e < KS * HB; e += blockDim.x) {
+      const int kk = e / HB, h = e % HB, k = k0 + kk;
+      if (k >= g.K || !((occ[h] >> k) & 1u)) continue;
+      int bx[D];
+      halo_cell(h, bx);
+      const size_t i = (size_t)k * g.C + flat(g, bx);
+      float r[NR], Cl[D * D];
+      for (int a = 0; a < D; ++a) r[rec_pos<D>(a)] = pos[a * KC + i];
+      r[rec_ap<D>()] = a_p[i];
+      r[rec_bm<D>()] = b_mu[i];
+      for (int a = 0; a < D * D; ++a) Cl[a] = load_vc(Cm, a * KC + i);
+      for (int u = 0; u < D; ++u)
+        for (int v = 0; v < D; ++v) {
+          float m = Cl[u * D + v];
+          if (p.legacy_strain) {
+            // S = C + C^T - I * C^T (MLSMPM2DFluid.cs:276-281): off-diagonal
+            // entries symmetrised, the diagonal C_ii left unscaled
+            const float sum = Cl[u * D + v] + Cl[v * D + u];
+            m = u == v ? sum - Cl[v * D + u] : sum;
+          }
+          r[rec_m<D>(u * D + v)] = m;
+        }
+      for (int q = rec_m<D>(D * D); q < NR; ++q) r[q] = 0.f;
+      for (int q = 0; q < NG; ++q)
+        rec[(kk * NG + q) * HB + h] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                                                  r[4 * q + 3]);
+    }
+    __syncthreads();
+    if (!valid) continue;
+    const int kn = min(KS, kend - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      const int k = k0 + kk;
+#pragma unroll
+      for (int t = 0; t < NTAPS<D>; ++t) {
+        // bucket x + tt - 1, halo index lx + tt; its slots reach the node
+        // with tap r = 2 - tt
+        int tt[D];
+        tap_digits(t, tt);
+        int h = lx[0] + tt[0];
+        for (int a = 1; a < D; ++a) h = h * hn[a] + lx[a] + tt[a];
+        if (!((occ[h] >> k) & 1u)) continue;
+        float r[NR];
+        for (int q = 0; q < NG; ++q) {
+          const float4 v = rec[(kk * NG + q) * HB + h];
+          r[4 * q] = v.x;
+          r[4 * q + 1] = v.y;
+          r[4 * q + 2] = v.z;
+          r[4 * q + 3] = v.w;
+        }
+        int rr[D];
+        float d[D], dist[D], M[D * D];
+        for (int a = 0; a < D; ++a) {
+          rr[a] = 2 - tt[a];
+          const float cb = (global_coord(s, a, x[a]) + 0.5f) + (float)(tt[a] - 1);
+          d[a] = r[rec_pos<D>(a)] - cb;
+        }
+        const float w = tap_weight(rr, d);
+        for (int a = 0; a < D; ++a) dist[a] = (float)(rr[a] - 1) - d[a];
+        for (int a = 0; a < D * D; ++a) M[a] = r[rec_m<D>(a)];
+        const float ap = r[rec_ap<D>()], bm = r[rec_bm<D>()];
+        for (int a = 0; a < D; ++a) {
+          const float sd = p.legacy_strain
+                               ? matvec_row<D>(M, a, dist)
+                               : matvec_row<D>(M, a, dist) + matvec_t_row<D>(M, a, dist);
+          part[t][a] = G::add(part[t][a], G::enc(w * (ap * dist[a] + bm * sd), mult));
+        }
+      }
+    }
+  }
+  if (!valid) return;
+
+  int gx[D];  // the node on the grid's planes
+  for (int a = 0; a < D; ++a) gx[a] = a == 0 ? x[a] + s.go : x[a];
+  const int c = flat(gg, gx);
   GT acc[D];
-  for (int a = 0; a < D; ++a) acc[a] = gmom[a * (size_t)gg.C + c];
-  p2g_force_gather<D, VC, GT>(x, pos, Cm, mass, a_p, b_mu, acc, p, s);
+  for (int a = 0; a < D; ++a) acc[a] = UPDATE ? gmom[a * (size_t)gg.C + c] : (GT)0;
+#pragma unroll
+  for (int t = 0; t < NTAPS<D>; ++t) {
+    int tt[D], bx[D];
+    tap_digits(t, tt);
+    for (int a = 0; a < D; ++a) bx[a] = x[a] + tt[a] - 1;
+    if (!in_grid(g, bx)) continue;  // a tap outside the state adds nothing
+    for (int a = 0; a < D; ++a) acc[a] = G::add(acc[a], part[t][a]);
+  }
+  if (!UPDATE) {
+    for (int a = 0; a < D; ++a) out[a * (size_t)gg.C + c] = acc[a];
+    return;
+  }
 
   // grid update (ops/grid.update_grid)
   const float m = G::dec(gmass[c], mult);
@@ -295,23 +454,29 @@ __global__ void p2g_force_grid(const float* __restrict__ pos, const VC* __restri
     }
   }
   for (int a = 0; a < D; ++a)
-    gvel[a * (size_t)gg.C + c] = has_mass ? G::enc(v[a], mult) : (GT)0;
+    out[a * (size_t)gg.C + c] = has_mass ? G::enc(v[a], mult) : (GT)0;
 }
 
-// The per-pass kernel B's last launch: pass 2 from zero, no grid update.
-template <int D, typename VC, typename GT, class Params>
-__global__ void p2g_force(const float* __restrict__ pos, const VC* __restrict__ Cm,
-                          const float* __restrict__ mass, const float* __restrict__ a_p,
-                          const float* __restrict__ b_mu, GT* __restrict__ gmom2, Params p) {
-  const GridGeom<D> g = p.g;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.C) return;
-  int x[D];
-  cell_coords(g, c, x);
-  GT acc[D];
-  for (int a = 0; a < D; ++a) acc[a] = 0;
-  p2g_force_gather<D, VC, GT>(x, pos, Cm, mass, a_p, b_mu, acc, p, whole_grid());
-  for (int a = 0; a < D; ++a) gmom2[a * (size_t)g.C + c] = acc[a];
+// Launches pass 2 over the tiles of grid_geom(p.g, s): UPDATE into gvel
+// from gmom, else from zero into out.
+template <int D, typename VC, typename GT, bool UPDATE, class Params>
+cudaError_t launch_p2g_force(const Params& p, const float* pos, const VC* Cm, const float* mass,
+                             const float* a_p, const float* b_mu, const GT* gmass,
+                             const GT* gmom, GT* out, cudaStream_t stream, const Slab& s) {
+  if (p.g.K > 32) return cudaErrorInvalidValue;  // one occupancy bit a slot
+  const GridGeom<D> gg = grid_geom(p.g, s);
+  unsigned tiles = 1;
+  for (int a = 0; a < D; ++a) tiles *= (gg.n[a] + tile_dim<D>(a) - 1) / tile_dim<D>(a);
+  constexpr size_t smem = force_tile_smem<D>();
+  auto kern = p2g_force_tile<D, VC, GT, UPDATE, Params>;
+  if constexpr (smem > 48 * 1024) {  // above 48 KB only when asked for
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<tiles, tile_nodes<D>(), smem, stream>>>(pos, Cm, mass, a_p, b_mu, gmass, gmom, out, p,
+                                                 s);
+  return cudaGetLastError();
 }
 
 // G2P at a slot of cell x, at offset d from the cell centre: the grid
@@ -501,15 +666,21 @@ __global__ void migrate_reject(const float* __restrict__ pos, const float* __res
   if (n_ceil) atomicAdd(ceiling, n_ceil);
 }
 
-// bucketed._migrate_axis after rejection: vel and C move as raw bits (T is
-// uint16_t for bf16 storage, uint32_t for float32).
-template <int D, typename T>
+// bucketed._migrate_axis after rejection, choosing apart from moving. Each
+// axis phase moves only what the next phase reads: the positions (the
+// axis's own from R), the mass, and each slot's index into the state the
+// migration started from (idx; null: the identity, the first phase). One
+// thread per destination cell first marks its candidates, bit k of sel[j]
+// for slot k of source j in [stay, from-left, from-right], then fills its K
+// output slots in slot order, the n-th candidate into slot n, so that a
+// warp's lanes store row n of neighbouring cells together; empty slots get
+// zeros and idx -1, the excess counts in `lost`. The payload (vel, C, ids)
+// moves once, after the last phase (migrate_gather).
+template <int D>
 __global__ void migrate_select(const float* __restrict__ pos, const float* __restrict__ R,
-                               const T* __restrict__ vel, const T* __restrict__ Cm,
-                               const float* __restrict__ mass, const int* __restrict__ ids,
-                               float* __restrict__ pos_o, T* __restrict__ vel_o,
-                               T* __restrict__ C_o, float* __restrict__ mass_o,
-                               int* __restrict__ ids_o, int* __restrict__ lost, int axis,
+                               const float* __restrict__ mass, const int* __restrict__ idx,
+                               float* __restrict__ pos_o, float* __restrict__ mass_o,
+                               int* __restrict__ idx_o, int* __restrict__ lost, int axis,
                                GridGeom<D> g, Slab s) {
   const size_t KC = (size_t)g.K * g.C;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -519,41 +690,66 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
   const int n_a = axis_extent(g, axis);
   const int xg = axis == 0 ? s.x0 : 0;  // local to global coordinate
 
-  int n = 0;
   // candidates: own slots staying (shift 0), the left neighbour's slots
   // moving +1, the right neighbour's moving -1
-  for (int src_i = 0; src_i < 3; ++src_i) {
-    const int shift = src_i == 0 ? 0 : (src_i == 1 ? 1 : -1);
+  unsigned sel[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int shift = j == 0 ? 0 : (j == 1 ? 1 : -1);
     const int src_co = co - shift;
+    sel[j] = 0;
     if (src_co < 0 || src_co >= n_a) continue;
     const int src = c - shift * st;
     for (int k = 0; k < g.K; ++k) {
       const size_t i = (size_t)k * g.C + src;
-      if (!(mass[i] > 0.f) || axis_delta(R[i], src_co + xg) != (float)shift) continue;
-      if (n < g.K) {
-        const size_t o = (size_t)n * g.C + c;
-        for (int a = 0; a < D; ++a) {
-          pos_o[a * KC + o] = a == axis ? R[i] : pos[a * KC + i];
-          vel_o[a * KC + o] = vel[a * KC + i];
-        }
-        for (int a = 0; a < D * D; ++a) C_o[a * KC + o] = Cm[a * KC + i];
-        mass_o[o] = mass[i];
-        ids_o[o] = ids[i];
-      }
-      ++n;
+      if (mass[i] > 0.f && axis_delta(R[i], src_co + xg) == (float)shift) sel[j] |= 1u << k;
     }
   }
-  for (int j = n; j < g.K; ++j) {
-    const size_t o = (size_t)j * g.C + c;
-    for (int a = 0; a < D; ++a) {
-      pos_o[a * KC + o] = 0.f;
-      vel_o[a * KC + o] = 0;
+  const int total = __popc(sel[0]) + __popc(sel[1]) + __popc(sel[2]);
+  int j = 0;
+  unsigned m = sel[0];
+  for (int n = 0; n < g.K; ++n) {
+    const size_t o = (size_t)n * g.C + c;
+    while (m == 0 && j < 2) m = ++j == 1 ? sel[1] : sel[2];
+    if (m == 0) {
+      for (int a = 0; a < D; ++a) pos_o[a * KC + o] = 0.f;
+      mass_o[o] = 0.f;
+      idx_o[o] = -1;
+      continue;
     }
+    const int k = __ffs(m) - 1;
+    m &= m - 1;
+    const int src = c - (j == 0 ? 0 : (j == 1 ? st : -st));
+    const size_t i = (size_t)k * g.C + src;
+    for (int a = 0; a < D; ++a) pos_o[a * KC + o] = a == axis ? R[i] : pos[a * KC + i];
+    mass_o[o] = mass[i];
+    idx_o[o] = idx ? idx[i] : (int)i;
+  }
+  if (total > g.K && counted(s, axis_coord(g, c, 0))) atomicAdd(lost, total - g.K);
+}
+
+// The payload's one move: output slot o takes vel, C and ids of slot
+// idx[o] of the state the migration started from (T: raw bits, uint16_t
+// for bf16, uint32_t for float32), or zeros and id -1 when idx[o] < 0.
+// One thread an output slot, so a warp's stores are contiguous. ids_o may
+// be idx itself: each thread reads its idx before it writes.
+template <int D, typename T>
+__global__ void migrate_gather(const int* idx, const T* __restrict__ vel,
+                               const T* __restrict__ Cm, const int* __restrict__ ids,
+                               T* __restrict__ vel_o, T* __restrict__ C_o, int* ids_o,
+                               size_t KC) {
+  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= KC) return;
+  const int i = idx[o];
+  if (i < 0) {
+    for (int a = 0; a < D; ++a) vel_o[a * KC + o] = 0;
     for (int a = 0; a < D * D; ++a) C_o[a * KC + o] = 0;
-    mass_o[o] = 0.f;
     ids_o[o] = -1;
+    return;
   }
-  if (n > g.K && counted(s, axis_coord(g, c, 0))) atomicAdd(lost, n - g.K);
+  for (int a = 0; a < D; ++a) vel_o[a * KC + o] = vel[a * KC + i];
+  for (int a = 0; a < D * D; ++a) C_o[a * KC + o] = Cm[a * KC + i];
+  ids_o[o] = ids[i];
 }
 
 constexpr int THREADS = 256;
@@ -581,9 +777,8 @@ cudaError_t launch_p2g_pass2(const Params& p, const float* pos, const VC* Cm, co
                                                                    p, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  p2g_force_grid<D, VC, GT><<<blocks_for(grid_geom(p.g, s).C, THREADS), THREADS, 0, stream>>>(
-      pos, Cm, mass, a_p, b_mu, gmass, gmom, gvel, p, s);
-  return cudaGetLastError();
+  return launch_p2g_force<D, VC, GT, true>(p, pos, Cm, mass, a_p, b_mu, gmass, gmom, gvel,
+                                          stream, s);
 }
 
 // Kernel P's chain on `stream`: pos, vel, C and mass in; gmass [C] and gvel
@@ -619,30 +814,40 @@ struct StateBuf {
 };
 
 // bucketed.migrate on `stream`: one reject/select phase per axis, the last
-// axis first, each out of place. The first phase reads `src` and writes
-// out0, the next reads that and writes out1, and so on in turns; R is a
-// [K, C] scratch row.
+// axis first, then the payload's gather. The phases carry pos, mass and the
+// source index in the pos, mass and ids arrays of out0 and out1 in turns,
+// the first reading src; the gather then reads src's vel, C and ids and
+// writes the last phase's buffer, which holds the result (out0 for D = 3,
+// out1 for D = 2). src.vel, src.C and src.ids must not be out0's or out1's;
+// src.pos may be out1's (the first phase has read it when the second
+// writes). R is a [K, C] scratch row. K <= 32 (a bit a slot).
 template <int D, typename T>
 cudaError_t launch_migrate(const GridGeom<D>& g, StateBuf<T> src, StateBuf<T> out0,
                            StateBuf<T> out1, float* R, int* lost, int* deferred,
                            int* ceiling, int ceil_band_y, cudaStream_t stream,
                            const Slab& s = whole_grid()) {
+  if (g.K > 32) return cudaErrorInvalidValue;
+  const StateBuf<T> first = src;
   StateBuf<T> dst = out0;
+  const int* idx = nullptr;
   for (int ph = 0; ph < D; ++ph) {
     const int axis = D - 1 - ph;
     migrate_reject<D><<<blocks_for(g.C, THREADS), THREADS, 0, stream>>>(
         src.pos, src.mass, R, deferred, ceiling, axis, ceil_band_y, g, s);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    migrate_select<D, T><<<blocks_for(g.C, THREADS), THREADS, 0, stream>>>(
-        src.pos, R, src.vel, src.C, src.mass, src.ids, dst.pos, dst.vel, dst.C, dst.mass,
-        dst.ids, lost, axis, g, s);
+    migrate_select<D><<<blocks_for(g.C, THREADS), THREADS, 0, stream>>>(
+        src.pos, R, src.mass, idx, dst.pos, dst.mass, dst.ids, lost, axis, g, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     src = dst;
+    idx = dst.ids;
     dst = ph % 2 == 0 ? out1 : out0;
   }
-  return cudaSuccess;
+  const size_t KC = (size_t)g.K * g.C;
+  migrate_gather<D, T><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(
+      src.ids, first.vel, first.C, first.ids, src.vel, src.C, src.ids, KC);
+  return cudaGetLastError();
 }
 
 }  // namespace mpm

@@ -12,28 +12,35 @@
 // What bounds it on this card: device-memory traffic. Each slot's state is
 // 68 B in float32 storage (pos 12, vel 12, C 36, mass 4, ids 4) and 44 B
 // with bf16 vel and C. The G2P/tail pass reads pos and mass and writes pos,
-// vel and C; each of the three axis phases reads the slot state of a cell
-// and its two neighbours along the axis (the neighbours' mass and axis
-// position twice: once to reject, once to select) and writes it out once:
-// roughly 4 x 68 + 3 x 2 x 24 = 420 B per slot per substep in f32, and about
-// 300 B in bf16. The 27 grid-velocity reads per slot come from L1/L2 (the
-// grid is 12 B per cell). The FLOPs are few.
+// vel and C; the migration needs each slot's state read and written once
+// more, beside the axis positions and masses its three phases choose by.
+// The 27 grid-velocity reads per slot come from L1/L2 (the grid is 12 B per
+// cell). The FLOPs are few.
 //
-// The simple design (the kernels are bucket_kernels.cuh's, for D = 3):
+// The design (the kernels are bucket_kernels.cuh's, for D = 3):
 //   g2p_tail    one thread per slot over 27 nodes, then the tail.
 //   per axis z, y, x, two launches:
 //   reject      one thread per source cell, with the ceiling band on y.
 //               Reading the counts of other cells and writing only its own
 //               slots' row, it needs no ordering between threads.
 //   select      one thread per destination cell, out of place into the
-//               other buffer.
+//               other buffer. It chooses (a bit mask of its 3K candidates)
+//               apart from moving, and moves only what the next phase
+//               reads: pos, mass and each slot's source index, 20 B a slot
+//               instead of the whole state, its K output rows written in
+//               step across a warp.
+//   gather      one thread per output slot, after the last phase: vel, C
+//               and ids moved once, through the composed source index, the
+//               stores of a warp contiguous.
 //   emission    when asked, kernel X's per-cell extraction
 //               (extract_cells.cuh) runs as the chain's last launch, on the
 //               post-migration buffers and the same stream. The TPU fused it
 //               into the last sweep to save a re-read of the state; here the
 //               re-read is the same ~40 MB at the pool window (tens of us),
 //               so a separate launch is kept.
-// The TPU kernel's plane sweep, rings, packed bf16 pairs and zero-mover
+// The earlier select copied the whole state (three copies a substep,
+// one serial candidate walk a cell with stores scattered over K rows). The
+// TPU kernel's plane sweep, rings, packed bf16 pairs and zero-mover
 // gates do not carry over. In fixed-point mode (fused.py:508-515) the grid
 // velocity is int32 and the gather decodes each node as it reads it.
 //
@@ -74,7 +81,8 @@ cudaError_t launch(const G2PParams& p, mpm::StateBuf<RAW> in, const GT* gvel,
                                             (VC*)A.C, cnt + CNT_CFL, stream, p.slab);
   if (err != cudaSuccess) return err;
   // G2P leaves mass and ids unchanged: the z phase reads them from the
-  // input. The phases write B, A, B: the result is in B.
+  // input. The phases carry pos, mass and indices through B, A, B; the
+  // payload gather then moves A's vel and C and the input's ids into B.
   mpm::StateBuf<RAW> src = {A.pos, A.vel, A.C, in.mass, in.ids};
   err = mpm::launch_migrate<3>(p.g, src, B, A, R, cnt + CNT_LOST, cnt + CNT_DEFERRED,
                                cnt + CNT_CEILING, p.ceil_band_y, stream, p.slab);

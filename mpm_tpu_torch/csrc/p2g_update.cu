@@ -15,15 +15,21 @@
 // caches, and the latency of the dependent gathers, bound it; the FLOPs
 // (about 2,000 per slot) do not.
 //
-// The simple design: the bucket layout makes every pass a gather, so each
-// grid node is owned by one thread that sums its 27 neighbour buckets' slots
-// in the plain version's order and, built with --fmad=false, rounds as it
-// does: the two agree bit for bit. Consecutive threads own consecutive z
-// cells, so every slot read is coalesced. Empty slots are skipped after one
-// 4-byte mass read. The TPU kernel's plane sweeps and VMEM rings do not
-// carry over. Three launches, bucket_kernels.cuh's p2g_mass_mom, p2g_coef
-// and p2g_force_grid for D = 3. Output: grid velocity [3, C] and grid mass
-// [C], float32 or int32. In fixed-point mode (the S4 scene) the grid is
+// The design: the bucket layout makes every pass a gather, so each grid
+// node is owned by one thread that sums its 27 neighbour buckets' slots in
+// the plain version's order and, built with --fmad=false, rounds as it
+// does: the two agree bit for bit. Three launches, bucket_kernels.cuh's
+// p2g_mass_mom and p2g_coef (one thread per cell or slot; consecutive
+// threads own consecutive z cells, so every slot read is coalesced, and
+// empty slots are skipped after one 4-byte mass read) and p2g_force_tile:
+// pass 2 and the grid update by one block per 2 x 8 x 16 nodes, which
+// stages the occupied slots of the tile's 4 x 10 x 18 buckets in shared
+// memory once (pos, a_p, b_mu and C as f32, two slot indices at a time)
+// and keeps each node's 27 tap partials in registers, so that each slot is
+// loaded and converted once a block rather than once for each of the 27
+// nodes it reaches. The TPU kernel's plane sweeps and VMEM rings do not
+// carry over. Output: grid velocity [3, C] and grid
+// mass [C], float32 or int32. In fixed-point mode (the S4 scene) the grid is
 // int32: each slot's contribution is encoded and summed as integers, the
 // density and the grid update decode, and the grid velocity is encoded
 // again (p2g_fused.py:91-100, 286-290, 368-405).
@@ -46,6 +52,19 @@ cudaError_t launch(const mpm::P2GParams& p, const float* pos, const void* vel, c
                             gv, s);
 }
 
+template <typename VC>
+int tile_blocks_per_sm() {
+  auto kern = mpm::p2g_force_tile<3, VC, float, true, mpm::P2GParams>;
+  const size_t smem = mpm::force_tile_smem<3>();
+  int n = -1;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, mpm::tile_nodes<3>(), smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -53,6 +72,12 @@ extern "C" {
 // Parameter block size, checked by the Python wrapper against its ctypes
 // mirror of P2GParams.
 int p2g_update_params_size() { return (int)sizeof(mpm::P2GParams); }
+
+// Blocks of pass 2's tile kernel (D = 3, float32 grid, bf16 or float32
+// C) that fit on one SM, or -1 on an error; for utils/kernel_resources.py.
+int p2g_force_tile_blocks_per_sm(int vc_bf16) {
+  return vc_bf16 ? tile_blocks_per_sm<__nv_bfloat16>() : tile_blocks_per_sm<float>();
+}
 
 // vc_bf16: vel and C are stored as bfloat16 (else float32). fixed: the grid
 // is int32 fixed point (gmass, gmom and gvel int32; else float32). Scratch:

@@ -17,18 +17,19 @@
 // re-reads and writes the grid mass and momentum (16 B a cell); B reads pos
 // and C again with the grid mass and writes a second momentum; D reads pos
 // and the grid velocity and writes vel and C (48 B a slot, every slot); E
-// reads and writes the whole state three times (68 B a slot a phase). Load
-// throughput from the caches bounds A and B, device memory D and E.
+// reads the whole state and writes it once, choosing by the positions and
+// masses in three phases. Load throughput from the caches bounds A, the
+// issue rate B, device memory D and E.
 //
-// The simple design: bucket_kernels.cuh's kernels for D = 3, the gathers
-// shared with P and F, so the rounding is one source's. A is p2g_mass_mom;
-// B is p2g_coef then p2g_force, pass 2 from zero (the sum with A's momentum
-// is the caller's, as the TPU left it to XLA); D is g2p_vc; E is the
-// migrate_reject / migrate_select pair per axis z, y, x. The TPU split E
-// into core and C kernels and blocked the C rows to fit VMEM; here one
-// select moves pos, vel, C, mass and ids together. Plane sweeps, K blocks
-// and halo padding do not carry over: every pass is a gather by one thread
-// per cell or slot.
+// The design: bucket_kernels.cuh's kernels for D = 3, the device code of
+// P and F, so the rounding is one source's. A is p2g_mass_mom; B is
+// p2g_coef then p2g_force_tile without the update, pass 2 from zero (the
+// sum with A's momentum is the caller's, as the TPU left it to XLA); D is
+// g2p_vc; E is kernel F's migration: the migrate_reject / migrate_select
+// pair per axis z, y, x, each select moving positions, mass and source
+// indices only, then one migrate_gather of vel, C and ids. The TPU split E
+// into core and C kernels and blocked the C rows to fit VMEM. Plane sweeps,
+// K blocks and halo padding do not carry over.
 
 #include "p2g_params.cuh"
 
@@ -65,9 +66,8 @@ int p2g2_planes(const void* params, const float* pos, const float* Cm, const flo
                                                                       b_mu, p, mpm::whole_grid());
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mpm::p2g_force<3, float, float><<<blocks_for(p.g.C, THREADS), THREADS, 0, s>>>(
-      pos, Cm, mass, a_p, b_mu, gmom2, p);
-  return (int)cudaGetLastError();
+  return (int)mpm::launch_p2g_force<3, float, float, false>(p, pos, Cm, mass, a_p, b_mu, gmass,
+                                                            nullptr, gmom2, s, mpm::whole_grid());
 }
 
 // D: pos, mass and the grid velocity gvel [3, C] in; vel [3, K, C] and C

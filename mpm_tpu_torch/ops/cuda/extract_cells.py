@@ -15,6 +15,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ..fmath import sqrt_rn
+
 CELL_BG = 1.0e9  # "no splat from this cell" depth sentinel
 
 
@@ -48,7 +50,7 @@ def cell_splats_plain(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
     safe = torch.where(depth > 1e-6, depth, 1e-6)
     px = s[13] + s[12] * vp[0] / safe
     py = s[14] - s[12] * vp[1] / safe
-    vmag = torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+    vmag = sqrt_rn(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
     valid = (mass > 0) & (depth > s[15])
     dmask = torch.where(valid, depth, CELL_BG)
     dmin = torch.amin(dmask, dim=0)

@@ -60,6 +60,9 @@ def check_grid(config: SimConfig) -> None:
     """Raise for configs no bucket kernel covers, 3D or 2D."""
     if config.bc not in _BC:
         raise ValueError(f"unknown bc flavor: {config.bc}")
+    if config.bin_capacity > 32:
+        # a bit a slot: the migration's candidates and pass 2's staging
+        raise NotImplementedError("the bucket kernels take at most 32 slots a cell")
     if config.clamp_lo < 1.0 or config.clamp_hi_offset <= 1.0:
         # the kernels bound neighbour reads by grid coordinates; the plain
         # version reads flat offsets that wrap rows. They agree only while

@@ -17,6 +17,8 @@ from typing import Sequence
 
 import torch
 
+from .fmath import sqrt_rn
+
 
 def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
@@ -65,7 +67,7 @@ def apply_interactions(pos: torch.Tensor, vel: torch.Tensor,
         for a in range(1, d.shape[0]):
             r2 = r2 + d[a] * d[a]
         inside = (r2 < it.radius * it.radius) & bool(it.active > 0)
-        norm = torch.sqrt(r2)
+        norm = sqrt_rn(r2)
         safe_norm = torch.where(norm > 0, norm, 1.0)
         dirn = d / safe_norm
         falloff = 1.0 + it.inv_falloff * (it.radius / safe_norm - 1.0)

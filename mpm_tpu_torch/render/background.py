@@ -10,6 +10,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.fmath import sqrt_rn
+
 from .camera import Camera, as_view, screen_to_view_dir
 
 
@@ -124,7 +126,7 @@ def render_background(cam: Camera, view, scene: BackgroundScene = BackgroundScen
         b = dot3(dirs, oc)
         c = dot3(oc, oc) - s.radius * s.radius
         disc = b * b - c
-        t_hit = -b - torch.sqrt(torch.clamp_min(disc, 0.0))
+        t_hit = -b - sqrt_rn(torch.clamp_min(disc, 0.0))
         hit = (disc > 0) & (t_hit > 0) & (t_hit < t_best)
         pth = eye + dirs * t_hit[..., None]
         n = _div(pth - center, s.radius)

@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from ..ops.fmath import sqrt_rn
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -85,7 +87,7 @@ def _pixel_axes(cam: Camera, y0: int, x0: int, h: int, w: int, device):
 
 def norm3(v: torch.Tensor) -> torch.Tensor:
     """Euclidean norm over the last axis of size 3, summed left to right."""
-    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+    return sqrt_rn((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
                       + v[..., 2] * v[..., 2])
 
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.fmath import sqrt_rn
+
 
 def render_2d(pos: torch.Tensor, vel_mag: torch.Tensor, grid_res: tuple[int, int],
               scale: int = 8, live: torch.Tensor | None = None) -> torch.Tensor:
@@ -64,5 +66,5 @@ def bucket_frame_2d(state, grid_res: tuple[int, int], scale: int = 8) -> torch.T
     its |v| (mpm_tpu/__main__.py's _render_2d_loop)."""
     pos = state.pos.reshape(2, -1)
     vel = state.vel.reshape(2, -1).to(torch.float32)
-    vmag = torch.sqrt(vel[0] * vel[0] + vel[1] * vel[1])
+    vmag = sqrt_rn(vel[0] * vel[0] + vel[1] * vel[1])
     return render_2d(pos, vmag, grid_res, scale=scale, live=state.mass.reshape(-1) > 0)

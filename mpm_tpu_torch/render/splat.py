@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.fmath import sqrt_rn
 from .camera import Camera, view_to_screen, world_to_view
 from .extract_kernel import CELL_BG
 
@@ -39,7 +40,7 @@ def _slot_rows(pos, vel, mass, view, cam: Camera) -> torch.Tensor:
     vel = vel.reshape(3, -1).float()
     occ = mass.reshape(-1) > 0
     px, py, depth = view_to_screen(world_to_view(pos, view), cam)
-    vmag = torch.sqrt(vel[0] ** 2 + vel[1] ** 2 + vel[2] ** 2)
+    vmag = sqrt_rn(vel[0] ** 2 + vel[1] ** 2 + vel[2] ** 2)
     valid = occ & (depth > cam.near)
     return torch.stack([px, py, torch.where(valid, depth, CELL_BG), vmag,
                         valid.float()])
@@ -201,7 +202,7 @@ def _dilate_spheres(bufs: SplatBuffers, cam: Camera, sphere_radius: float,
             c[R] = torch.inf  # the centre tap (dx = 0)
         src_d = d0[pad - dy:pad - dy + h].unfold(1, w, 1)[:, taps]
         src_q = q0[pad - dy:pad - dy + h].unfold(1, w, 1)[:, taps]
-        cand = src_d - torch.sqrt(r2 - src_q * c[:, None])
+        cand = src_d - sqrt_rn(r2 - src_q * c[:, None])
         cand = torch.nan_to_num(cand, nan=torch.inf, posinf=torch.inf)
         best = torch.fmin(best, cand.amin(dim=1))
     return SplatBuffers(depth=best)

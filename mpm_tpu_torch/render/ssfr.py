@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.fmath import sqrt_rn
+
 from .background import dot3
 from .blur_kernel import FAR_GUARD, blur_depth_kernel
 from .camera import Camera, as_view, norm3, screen_to_view_dir, view_pos_from_depth
@@ -126,7 +128,7 @@ def shade(fluid_depth: torch.Tensor, bg_color: torch.Tensor, bg_depth: torch.Ten
     # refraction: offset the background lookup by the refracted direction
     cos_i = torch.clamp(dot3(-ray_dir, normal), -1.0, 1.0)
     k = 1.0 - ETA * ETA * (1.0 - cos_i * cos_i)
-    refr_dir = ETA * ray_dir + (ETA * cos_i - torch.sqrt(torch.clamp_min(k, 0.0)))[
+    refr_dir = ETA * ray_dir + (ETA * cos_i - sqrt_rn(torch.clamp_min(k, 0.0)))[
         ..., None] * normal
     h, w = fluid_depth.shape
     uv_off = refr_dir[..., :2] * (params.thickness * params.refraction_strength)

@@ -25,8 +25,8 @@ from .timing import fenced_windows
 SUBSTEPS = 5  # a step call
 WARM_CALLS = 20
 WINDOW_CALLS = 200  # 1,000 substeps a window
-SIM2D_KERNELS = ("p2g_mass_mom", "p2g_coef", "p2g_force_grid", "g2p_tail")
-MIGRATE2D_KERNELS = ("migrate_reject", "migrate_select")
+SIM2D_KERNELS = ("p2g_mass_mom", "p2g_coef", "p2g_force_tile", "g2p_tail")
+MIGRATE2D_KERNELS = ("migrate_reject", "migrate_select", "migrate_gather")
 
 
 def warm_bench2d(dev):

@@ -4,7 +4,8 @@ mpm_tpu.ops.bucketed on the small scene of tests/test_fused.py.
 
 Bars are the JAX package's own (tests/test_fused.py): ids equal slot for
 slot; float32 pos within 1e-6 and vel/C within 1e-5; bf16 vel/C within rtol
-0.01, atol 1e-4; counters equal."""
+0.01, atol 1e-4; counters equal. Whole substeps are held bit for bit against
+the JAX XLA engine run without fused multiply-adds (tests/torch_xla_ref.py)."""
 
 import functools
 
@@ -31,6 +32,7 @@ from mpm_tpu_torch.ops.cuda import p2g_update as kp
 from mpm_tpu_torch.ops.interact import Interaction as TInteraction
 from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.ops.window import window_config
+from torch_xla_ref import assert_equal_to_xla, state_arrays, xla_substeps
 
 torch.set_num_threads(2)
 
@@ -60,11 +62,6 @@ def _small(storage="float32", windowed=False, sphere=False):
         ji = (JInteraction.sphere((8.0, 8.0, 8.0), radius=4.0, strength=0.5),)
         ti = (TInteraction.sphere((8.0, 8.0, 8.0), radius=4.0, strength=0.5),)
     return jcfg, tcfg, j, t, ji, ti
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_substep(jcfg: JConfig, n_inter: int):
-    return jax.jit(lambda b, f, it: jb.substep(b, jcfg, f, it))
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,22 +148,30 @@ def test_kernel_f_plain_matches_jax():
                    kf.g2p_migrate_plain(tstate, tg, tcfg, t.fluid))
 
 
+XLA_CASE = {"float32": "f32", "bfloat16": "bf16", "windowed": "windowed", "sphere": "sphere"}
+
+
+@functools.lru_cache(maxsize=None)
+def _xla_substeps():
+    """Three substeps of every case of CASES in the JAX XLA engine without
+    fused multiply-adds (tests/torch_xla_ref.py), from the port's packing,
+    which equals the JAX package's slot for slot; one subprocess."""
+    states = {}
+    for case in CASES:
+        _, tcfg, _, t, _, _ = _small(**CASES[case])
+        states[XLA_CASE[case]] = state_arrays(tb.from_simstate(t.state, tcfg))
+    return xla_substeps(states, 3)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_substeps_match_jax(case):
-    """Three full substeps, so that migration runs on every axis."""
-    jcfg, tcfg, j, t, ji, ti = _small(**CASES[case])
-    b = jb.from_simstate(j.state, jcfg)
+    """Three full substeps, so that migration runs on every axis, bit for
+    bit against the JAX XLA engine, counters included."""
+    _, tcfg, _, t, _, ti = _small(**CASES[case])
     s = tb.from_simstate(t.state, tcfg)
-    if case in ("float32", "sphere"):  # the f32 config's compiled halves
-        jp, jf = _jax_pieces(jcfg)
-        step = lambda b: jf(b, jp(b, j.fluid), j.fluid, ji)  # noqa: E731
-    else:
-        js = _jax_substep(jcfg, len(ji))
-        step = lambda b: js(b, j.fluid, ji)  # noqa: E731
     for _ in range(3):
-        b = step(b)
         s = tb.substep(s, tcfg, t.fluid, ti)
-    assert_matches(b, s, bf16=case == "bfloat16")
+    assert_equal_to_xla(s, _xla_substeps()[XLA_CASE[case]])
     assert int(s.lost) == 0
 
 
@@ -236,7 +241,8 @@ def test_cuda_wrappers_take_plain_version_on_cpu():
 
 # fixed-point 3D configs run on P and F; fixed-point 2D stays outside
 @pytest.mark.parametrize("kw", [dict(fixed_point=True, grid_res=(16, 16)),
-                                dict(grid_res=(16, 16)), dict(clamp_lo=0.5)])
+                                dict(grid_res=(16, 16)), dict(clamp_lo=0.5),
+                                dict(bin_capacity=33)])
 def test_kernels_refuse_configs_outside_the_slice(kw):
     with pytest.raises(NotImplementedError):
         kp.check_supported(SimConfig(grid_res=(16, 16, 16)).replace(**kw))

@@ -49,8 +49,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _scene(dev, storage="float32", grid_res=None, **kw):
-    sc = fluid_3d(grid_res=16, box=8.0, spacing=0.8, device=dev)
+def _scene(dev, storage="float32", grid_res=None, spacing=0.8, **kw):
+    sc = fluid_3d(grid_res=16, box=8.0, spacing=spacing, device=dev)
     config = sc.config.replace(bin_capacity=8, storage_dtype=storage, **kw)
     if grid_res is not None:
         config = window_config(config.replace(grid_res=grid_res), 16)
@@ -510,3 +510,143 @@ def test_sharded_fixed_step_equals_unsharded_kernels(dev):
     for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(got.deferred) > 0
+
+
+# ---- the migration's choose / move split and pass 2's staged tiles -------
+
+FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling")
+
+
+def _assert_bit_equal(got, want):
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def _stress_grid(config, fluid, dev, seed):
+    """A random grid velocity that moves particles up to 1.5 cells a
+    substep: moves on every axis, deferred moves and CFL clamps."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    gv = (torch.rand((config.dim, config.num_cells), generator=gen) * 2 - 1) * (
+        1.5 / float(fluid.dt))
+    if config.fixed_point:
+        gv = fixed_point.encode(gv, config.fixed_point_mult)
+    return Grid(mom=gv.to(dev).contiguous(), mass=None)
+
+
+# case: (lattice spacing, config fields); spacing 0.5 fills every cell at K=8
+MIGRATION_CASES = {
+    "f32": (0.5, dict(bin_capacity=8)),
+    "bf16_k4": (0.5, dict(bin_capacity=4, storage_dtype="bfloat16")),
+    "fixed": (0.5, dict(bin_capacity=8, fixed_point=True)),
+    "ceiling": (0.8, dict(bin_capacity=8)),
+}
+
+
+@pytest.mark.parametrize("case", list(MIGRATION_CASES))
+def test_kernel_f_migration_stress_matches_plain(dev, case):
+    """Kernel F under a random grid velocity (deferred moves, CFL clamps;
+    at K=4 the packing overflows, so `lost` starts above 0 and the kernel
+    carries it; the window's ceiling band rejects upward moves): every
+    field and counter bit for bit the plain version's. The conservative
+    rejection keeps any bucket from overflowing, so the kernel adds 0 to
+    `lost`, as the plain version does."""
+    spacing, kw = MIGRATION_CASES[case]
+    sc = fluid_3d(grid_res=16, box=8.0, spacing=spacing, device=dev)
+    config = sc.config.replace(**kw)
+    st = sc.state
+    if case == "ceiling":  # the window's arrays y < 16 of 32; the fluid's top in its band
+        config = window_config(config.replace(grid_res=(16, 32, 16)), 16)
+        st = dataclasses.replace(st, pos=st.pos + torch.tensor([[0.0], [2.0], [0.0]], device=dev))
+    state = _warm(bucketed.from_simstate(st, config), config, sc.fluid)
+    grid = _stress_grid(config, sc.fluid, dev, seed=5)
+    if case == "ceiling":  # everything moves up fast
+        up = torch.zeros_like(grid.mom)
+        up[1] = up[1] + 1.5 / float(sc.fluid.dt)
+        grid = Grid(mom=up, mass=None)
+    n0 = kf.launches
+    got = kf.g2p_migrate(state, grid, config, sc.fluid)
+    torch.cuda.synchronize()
+    assert kf.launches == n0 + 1
+    want = kf.g2p_migrate_plain(state, grid, config, sc.fluid)
+    _assert_bit_equal(got, want)
+    assert int(want.deferred) > 0
+    if case == "bf16_k4":
+        assert int(want.lost) > 0
+    if case == "ceiling":
+        assert int(want.ceiling) > 0
+
+
+def test_kernel_f_shard_mode_stress_matches_plain(dev):
+    """Kernel F's shard mode on each of 4 padded slabs under a random grid
+    velocity: the counters count the slab's own planes only, bit for bit
+    the plain version's."""
+    config, fluid, state = _scene(dev, "bfloat16", spacing=0.5)
+    state = _warm(state, config, fluid)
+    loc, pc = 4, 256
+    padded = domain._exchange_state_halo(
+        domain.shard_bucket_state(state, config, domain.SlabMesh.on(dev, 4)).slabs, pc)
+    cfg = bucketed.slab_config(config, loc + 4)
+    gcfg = bucketed.slab_config(config, loc + 6)
+    for a, p in enumerate(padded):
+        slab = bucketed.Slab(x0=a * loc - 2, go=1, c_lo=2, c_hi=loc + 1)
+        grid = _stress_grid(gcfg, fluid, dev, seed=7 + a)
+        got = kf.g2p_migrate(p, grid, cfg, fluid, slab=slab)
+        want = kf.g2p_migrate_plain(p, grid, cfg, fluid, slab=slab)
+        _assert_bit_equal(got, want)
+        assert int(want.deferred) > 0
+
+
+def test_migrate2d_stress_matches_plain(dev):
+    """migrate2d (D=2, K=4) on full cells perturbed by up to 0.9 cells on
+    both axes, with moves deferred: bit for bit the plain version."""
+    sc = dam_break_2d(spacing=0.5, device=dev)
+    config, fluid = sc.config, sc.fluid
+    state = _warm(bucketed.from_simstate(sc.state, config), config, fluid, 4)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    occ = state.mass > 0
+    d = (torch.rand(state.pos.shape, generator=gen) * 1.8 - 0.9).to(dev)
+    pos = torch.clamp(state.pos + torch.where(occ, d, 0.0), 2.0, 61.5)
+    pre = state.replace(pos=pos.contiguous())
+    got = k2d.migrate2d(pre, config)
+    want = k2d.migrate2d_plain(pre, config)
+    _assert_bit_equal(got, want)
+    assert int(want.deferred) > 0
+
+
+def _odd_grid_state(dev, storage, legacy_strain, res=(61, 53, 67), seed=13):
+    """Random particles (about one a cell) with random vel and C on a grid
+    that is no multiple of pass 2's tile on any axis."""
+    from mpm_tpu_torch.core.params import FluidParams, SimConfig
+    from mpm_tpu_torch.core.state import make_state
+
+    config = SimConfig(grid_res=res, bin_capacity=8, storage_dtype=storage,
+                       legacy_strain=legacy_strain)
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(res))
+    pos = rng.uniform(2.0, np.array(res) - 2.0, (n, 3))
+    vel = rng.normal(size=(n, 3))
+    C = rng.normal(size=(3, 3, n)) * 0.3
+    st = make_state(pos.astype(np.float32), dev, vel=vel.astype(np.float32),
+                    C=C.astype(np.float32))
+    return config, FluidParams.create(dim=3), bucketed.from_simstate(st, config)
+
+
+@pytest.mark.parametrize("legacy_strain", [False, True])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_p2g_pass2_tiles_match_plain_on_odd_grid(dev, storage, legacy_strain):
+    """Pass 2's staged tiles at the tile edges of a 61 x 53 x 67 grid:
+    kernel P, the sharded stage 2 (the whole state as a slab, go = 1: 63
+    grid planes) and, in float32, kernel B, each bit for bit its plain
+    version."""
+    config, fluid, state = _odd_grid_state(dev, storage, legacy_strain)
+    got = kp.p2g_update(state, config, fluid)
+    want = kp.p2g_update_plain(state, config, fluid)
+    assert torch.equal(got.mom, want.mom) and torch.equal(got.mass, want.mass)
+    g1 = ks.p2g1_shard_plain(state, config, fluid, 0)
+    assert torch.equal(ks.p2g2u_shard(state, g1, config, fluid, 0),
+                       ks.p2g2u_shard_plain(state, g1, config, fluid, 0))
+    if storage == "float32":
+        w1 = planes.p2g1_plain(state, config)
+        assert torch.equal(planes.p2g2_planes(state, w1.mass, config, fluid),
+                           planes.p2g2_plain(state, w1.mass, config, fluid))
+    torch.cuda.synchronize()

@@ -5,13 +5,12 @@ the JAX package on the CPU, at tests/test_fused.py's small fixed config
 
 Bars: against the JAX fused kernels in interpret mode, the JAX package's
 own (tests/test_fused.py:113-132): ids equal, pos within 1e-5, vel within
-1e-4. Against the JAX XLA fixed-point engine, see the test. Within the
-port, the int32 sums commute exactly, so the engine is bit-exact across
-particle permutations (tests/test_fused.py:135-160)."""
+1e-4. Against the JAX XLA fixed-point engine, bit for bit (see the test).
+Within the port, the int32 sums commute exactly, so the engine is
+bit-exact across particle permutations (tests/test_fused.py:135-160)."""
 
 import functools
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -27,6 +26,7 @@ from mpm_tpu_torch.ops import bucketed as tb
 from mpm_tpu_torch.ops.cuda import g2p_migrate as kf
 from mpm_tpu_torch.ops.cuda import p2g_update as kp
 from mpm_tpu_torch.ops.cuda import step as cuda_step
+from torch_xla_ref import assert_equal_to_xla, reciprocal_decode, state_arrays, xla_substeps
 
 torch.set_num_threads(2)
 
@@ -70,24 +70,20 @@ def test_plain_fixed_engine_matches_jax_fused(jax_fused_substep):
 
 
 def test_plain_fixed_engine_matches_jax_xla():
-    """Three substeps against the JAX XLA fixed-point engine. Both sum the
-    same int32 encodings of each slot's contributions, so the grids agree
-    but for encodings that a last-bit difference in the float arithmetic
-    before the truncation moves by one unit (1e-7; XLA on the CPU contracts
-    a * b + c into fused multiply-adds). Held at the float engine's bars:
-    ids equal, pos within 1e-6, vel and C within 1e-5."""
-    jcfg, tcfg, j, t = _small_fixed()
-    step = jax.jit(lambda b, f: jb.substep(b, jcfg, f, ()))
-    b = jb.from_simstate(j.state, jcfg)
+    """Three substeps against the JAX XLA fixed-point engine, bit for bit,
+    counters included. Both sum the same int32 encodings of each slot's
+    contributions; the float arithmetic before each truncation agrees once
+    XLA runs without fused multiply-adds and the port decodes as XLA's jit
+    does, by the reciprocal (tests/torch_xla_ref.py says why: without
+    either, vel differs in 1,309 elements and C in 6,165)."""
+    _, tcfg, _, t = _small_fixed()
     s = tb.from_simstate(t.state, tcfg)
-    for _ in range(3):
-        b = step(b, j.fluid)
-        s = cuda_step.substep(s, tcfg, t.fluid)
-    np.testing.assert_array_equal(s.ids.numpy(), np.asarray(b.ids))
-    np.testing.assert_allclose(s.pos.numpy(), np.asarray(b.pos), atol=1e-6)
-    np.testing.assert_allclose(s.vel.numpy(), np.asarray(b.vel), atol=1e-5)
-    np.testing.assert_allclose(s.C.numpy(), np.asarray(b.C), atol=1e-5)
-    assert int(s.lost) == int(b.lost) == 0
+    want = xla_substeps({"fixed": state_arrays(s)}, 3)["fixed"]
+    with reciprocal_decode():
+        for _ in range(3):
+            s = cuda_step.substep(s, tcfg, t.fluid)
+    assert_equal_to_xla(s, want)
+    assert int(s.lost) == 0
 
 
 def test_s4_scene_matches_jax():

@@ -1,6 +1,7 @@
 """Numerics shared by every engine, the PyTorch port against the JAX package
 on the same seeded numpy inputs: B-spline weights, pow_static and the EOS,
-the grid update with its BC bands, interactions and fixed-point coding.
+the grid update with its BC bands, interactions, fixed-point coding and the
+port's correctly rounded square root.
 
 These are elementwise formulas written in the same operation order in both
 packages; where a bar is not exact equality it allows float32 rounding of
@@ -26,6 +27,7 @@ from mpm_tpu_torch.core.params import SimConfig as TConfig
 from mpm_tpu_torch.core.state import Grid as TGrid
 from mpm_tpu_torch.ops import bspline as tbs
 from mpm_tpu_torch.ops import fixed_point as tfp
+from mpm_tpu_torch.ops.fmath import sqrt_rn
 from mpm_tpu_torch.ops import grid as tgrid
 from mpm_tpu_torch.ops import interact as tint
 from mpm_tpu_torch.ops import stress as tst
@@ -138,3 +140,21 @@ def test_fixed_point_coding():
     te = tfp.encode(torch.from_numpy(x), 1e7)
     np.testing.assert_array_equal(np.asarray(je), te.numpy())
     _close(jfp.decode(je, 1e7), tfp.decode(te, 1e7))
+
+
+SQRT_CASES = {
+    "uniform": (0.0, 100.0),
+    "near_zero": (0.0, 1e-30),
+    "over_1e6": (1e6, 1e12),
+}
+
+
+@pytest.mark.parametrize("case", list(SQRT_CASES))
+def test_sqrt_rn_matches_numpy(case):
+    """The port's square root equals IEEE float32 `np.sqrt` bit for bit on
+    2^20 seeded values (PyTorch's vectorised CPU sqrt does not)."""
+    lo, hi = SQRT_CASES[case]
+    x = np.random.default_rng(7).uniform(lo, hi, 1 << 20).astype(np.float32)
+    got = sqrt_rn(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), np.sqrt(x).view(np.int32))

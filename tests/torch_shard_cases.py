@@ -4,30 +4,25 @@ one test worker): the 16^3 scene of tests/test_sharded.py (K=8) in both
 packages, its references, and the bars.
 
 Bars. Against the JAX XLA engine (mpm_tpu.ops.bucketed.substep), 3
-substeps: the JAX package's sharded bars (tests/test_sharded.py): ids
-equal, pos 1e-6, vel and C 1e-5 (bf16 rtol 0.01), counters equal; fixed
-point at the same float bars, since the port's fixed engine is not
-bit-exact with XLA's, which contracts to fused multiply-adds
-(tests/test_torch_fixed_point.py). Within the port the sharded step equals
-the unsharded one bit for bit, counters included."""
+substeps, bit for bit, counters included: the JAX half runs without fused
+multiply-adds in a subprocess, and the fixed-point port decodes by the
+reciprocal as XLA's jit does (tests/torch_xla_ref.py says why). Within the
+port the sharded step equals the unsharded one bit for bit, counters
+included, with the port's own IEEE decode."""
 
 import dataclasses
 import functools
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 import torch
 
 from mpm_tpu.models.scenes import fluid_3d as jfluid_3d
-from mpm_tpu.ops import bucketed as jb
 from mpm_tpu_torch.models.scenes import fluid_3d
 from mpm_tpu_torch.ops import bucketed as tb
 from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.parallel import domain
+from torch_xla_ref import (FIELDS, STORAGE, assert_equal_to_xla, reciprocal_decode, state_arrays,
+                           xla_substeps)
 
-FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling")
-STORAGE = {"f32": {}, "bf16": {"storage_dtype": "bfloat16"}, "fixed": {"fixed_point": True}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,21 +52,15 @@ def initial(storage) -> tb.BucketState:
 def references(storage, heavy: bool):
     """(3 substeps of the port's unsharded plain engine, and at the scene's
     gravity 3 substeps of the JAX XLA engine as numpy arrays by field)."""
-    jcfg, tcfg = configs(storage)
-    j, t, g10 = scenes()
-    ref = make_step(tcfg, mode="bucketed", substeps=3)(initial(storage), g10 if heavy else t.fluid)
+    _, tcfg = configs(storage)
+    _, t, g10 = scenes()
+    step = make_step(tcfg, mode="bucketed", substeps=3)
+    ref = step(initial(storage), g10 if heavy else t.fluid)
     if heavy:
         return ref, None
-    step = jax.jit(lambda b, f: jb.substep(b, jcfg, f, ()))
     # the port's packing equals the JAX package's slot for slot
     # (tests/test_torch_bucketed.py), so JAX starts from the same arrays
-    b0 = initial(storage)
-    jstate = jb.BucketState(*(jnp.asarray(getattr(b0, f).float().numpy()).astype(jnp.bfloat16)
-                              if getattr(b0, f).dtype == torch.bfloat16
-                              else jnp.asarray(getattr(b0, f).numpy()) for f in FIELDS))
-    for _ in range(3):
-        jstate = step(jstate, j.fluid)
-    return ref, {f: np.asarray(getattr(jstate, f)) for f in FIELDS}
+    return ref, xla_substeps({storage: state_arrays(initial(storage))}, 3)[storage]
 
 
 def sharded(storage, n_slabs, heavy: bool) -> tb.BucketState:
@@ -92,20 +81,15 @@ def assert_bit_equal(got, want):
 
 def check_matrix_case(storage, n_slabs):
     """The sharded step at the scene's gravity: bit for bit the port's
-    unsharded engine, and within the bars of the JAX XLA engine."""
+    unsharded engine, and bit for bit the JAX XLA engine."""
     ref, want = references(storage, False)
     got = sharded(storage, n_slabs, False)
     assert_bit_equal(got, ref)
-    np.testing.assert_array_equal(got.ids.numpy(), want["ids"])
-    np.testing.assert_allclose(got.pos.numpy(), want["pos"], rtol=0, atol=1e-6)
-    for f in ("vel", "C"):
-        if storage == "bf16":
-            np.testing.assert_allclose(getattr(got, f).float().numpy(),
-                                       want[f].astype(np.float32), rtol=0.01, atol=1e-4)
-        else:
-            np.testing.assert_allclose(getattr(got, f).numpy(), want[f], rtol=0, atol=1e-5)
-    for f in ("lost", "deferred", "cfl_clamped", "ceiling"):
-        assert int(getattr(got, f)) == int(want[f]), f
+    if storage == "fixed":  # the port's engine with XLA's decode
+        _, tcfg = configs(storage)
+        with reciprocal_decode():
+            got = make_step(tcfg, mode="bucketed", substeps=3)(initial(storage), scenes()[1].fluid)
+    assert_equal_to_xla(got, want)
 
 
 def check_counts_case(storage):
