@@ -16,11 +16,11 @@ sharded 640x360 frame on 4 slabs; the 1M dam-break; the 100k 2D benchmark
 and its frame; fluid_3d through the per-pass kernels under
 MPM_PALLAS_OLD=1; the fixed-point scene S4; config 5, 16M particles on
 256^3 under the air window on 4 slabs, beside the same window unsharded),
-holds the redesigned migration and pass 2 against their plain versions bit
-for bit under stress (a config-5 slab under a random grid velocity, and the
-card tests' stress cases), runs the CLI (`--shards 1` too), and times each
-kernel beside its plain
-version and its roofline bound. Every main path runs with the launch counts set to 0 just before it
+holds the redesigned migration and P2G passes against their plain versions
+bit for bit under stress (a config-5 slab as it is, with every slot filled,
+and under a random grid velocity, and the card tests' stress cases), runs
+the CLI (`--shards 1` too), and times each kernel beside its plain version
+and its roofline bound. Every main path runs with the launch counts set to 0 just before it
 and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
@@ -706,11 +706,12 @@ def stress_grid(config, fluid, dev, seed: int) -> Grid:
 
 
 def phase_stress_tests() -> None:
-    """The card tests of the migration's choose / move split and of pass 2's
-    staged tiles (tests/test_torch_cuda.py: deferred moves, lost > 0 at
+    """The card tests of the migration's choose / move split and of the two
+    P2G passes' tiles (tests/test_torch_cuda.py: deferred moves, lost > 0 at
     K=4, the ceiling band, f32, bf16 and fixed point, D = 2 and 3, slabs
-    with their counter gate, legacy strain on a 61 x 53 x 67 grid), each
-    bit for bit its plain version."""
+    with their counter gate and at both global ends, legacy strain on a
+    61 x 53 x 67 grid, K=32 with every slot filled, an empty state, slots
+    only in tiles' halo buckets), each bit for bit its plain version."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
            os.path.join(ROOT, "tests", "test_torch_cuda.py"), "-k", "stress or odd_grid"]
     res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -724,12 +725,30 @@ def phase_stress_tests() -> None:
 def phase_shard_times(state, config, fluid, time_pair) -> None:
     """The shard kernels' times on slab 1 of config 5's settled window,
     beside their plain versions and bounds (utils/roofline.py); before
-    them, stage 2 and F's shard mode on that slab bit for bit their plain
-    versions, F also under a random grid velocity that defers moves and
-    counts on the slab's own planes only."""
+    them, the two stages and F's shard mode on that slab bit for bit their
+    plain versions, stage 1 also with every slot off the y and z edge planes
+    filled (the empty slots given mass at their cell centres), F also under
+    a random grid velocity that defers moves and counts on the slab's own
+    planes only."""
     padded, cfg, x0s, g1, gv, gates = shard_inputs(state, config, fluid)
     p, x0, g, v, gate = padded[1], x0s[1], g1[1], gv[1], gates[1]
     shape = f"config 5 slab 1 of {SLABS}: {cfg.grid_res} K={cfg.bin_capacity} bf16"
+    # the empty slots of every cell off the y and z edge planes (which the
+    # clamps keep empty, and where the plain version's flat offsets wrap
+    # rows) filled at their cell centres
+    co = bucketed.cell_coords(cfg, p.device, x0=x0)  # [3, C]
+    fill = (p.mass <= 0) & ((co[1] >= 1) & (co[1] <= cfg.grid_res[1] - 2) & (co[2] >= 1)
+                            & (co[2] <= cfg.grid_res[2] - 2))[None, :]
+    full = p.replace(pos=torch.where(fill, co[:, None, :] + 0.5, p.pos).contiguous(),
+                     mass=torch.where(fill, torch.ones_like(p.mass), p.mass))
+    for label, st in (("as it is", p), ("every slot off the y and z edges filled", full)):
+        got, want = ks.p2g1_shard(st, cfg, fluid, x0), ks.p2g1_shard_plain(st, cfg, fluid, x0)
+        if not (torch.equal(got.mass, want.mass) and torch.equal(got.mom, want.mom)):
+            raise AssertionError(f"p2g1_shard differs from its plain version at {shape}, {label}")
+    phase("stress", f"{shape}: p2g1_shard bit-equal to its plain version with "
+          f"{int((p.mass > 0).sum())} and with {int((full.mass > 0).sum())} of "
+          f"{p.mass.numel()} slots occupied")
+    del full, fill, co, got, want
     if not torch.equal(ks.p2g2u_shard(p, g, cfg, fluid, x0),
                        ks.p2g2u_shard_plain(p, g, cfg, fluid, x0)):
         raise AssertionError(f"p2g2u_shard differs from its plain version at {shape}")

@@ -7,11 +7,12 @@
 //
 // What they compute is mpm_tpu/ops/bucketed.py: p2g_bucketed, the grid
 // update (ops/grid.update_grid), g2p_bucketed and migrate. The bucket layout
-// makes every pass a gather: a grid node is owned by one thread that sums
-// its 3^D neighbour buckets' slots in the plain version's order (taps in
-// (x, y[, z]) order, slots in slot order), and a slot by one thread that
-// reads its 3^D nodes. There are no float atomics, so the results are the
-// same run to run; counters are int32 atomicAdds, exact in any order.
+// makes every pass a gather: a grid node's sums take its 3^D neighbour
+// buckets' slots in the plain version's order (taps in (x, y[, z]) order,
+// slots in slot order; the two P2G passes stage a tile's slots first, see
+// them), and a slot is owned by one thread that reads its 3^D nodes. There
+// are no float atomics, so the results are the same run to run; counters
+// are int32 atomicAdds, exact in any order.
 // Neighbours come from D-dimensional coordinates with bounds checks; the
 // plain version's flat offsets wrap rows instead, and the two agree because
 // the position clamps keep every axis's edge planes empty (the wrappers
@@ -23,7 +24,11 @@
 // events count); whole_grid() is the whole grid, and with it each kernel
 // computes what it computed before slabs existed, operation for operation.
 //
-//   p2g_mass_mom    one thread per cell: pass-1 mass and APIC momentum.
+//   p2g_mass_tile   one block per tile of nodes: each occupied slot of the
+//                   tile and its halo loaded once, its contributions added
+//                   to the nodes' tap partials in shared memory in slot
+//                   order, then each node's partials summed in tap order:
+//                   pass-1 mass and APIC momentum.
 //   p2g_coef        one thread per slot: density gather, EOS, the a_p and
 //                   b_mu force coefficients.
 //   p2g_force_tile  one block per tile of nodes, one thread per node: the
@@ -97,59 +102,275 @@ __device__ __forceinline__ float grid_mult(const Params& p) {
     return 1.0f;
 }
 
-// Params: the source's parameter block, with the fields named below. GT:
-// the grid's element type, float or int (fixed point, GridCoding).
-// One thread per grid node c of grid_geom(p.g, s); x is the node's state
-// coordinate (go planes below its grid plane), so a halo node gathers the
-// state planes within its reach.
+// Pass 1 (p2g_mass_tile): one block per tile of grid nodes. A gather by one
+// thread a node loses its time reloading each slot's pos, vel, C (converted
+// from bf16 each time) and mass once for each of the 3^D nodes it reaches,
+// and reading the mass of every slot, empty or not, 3^D times a node. A
+// slot's contribution to a node depends only on the slot and the tap digits
+// r (node = bucket + r - 1): its offset d from its own bucket's centre is
+// the same for every node that reads it. So here each thread owns buckets
+// of the tile's halo ((tile + 2)^D buckets): it reads a bucket's masses once
+// into an occupancy mask, loads each occupied slot once (the next while it
+// adds the current one), computes its axis weights and C * dist products
+// once, and what the taps of one leading digit pair share once for each
+// pair whose nodes the tile holds, and adds the slot's contribution to each
+// node of the tile it reaches into that node's partial for the tap, kept in
+// shared memory ([3^D taps][tile nodes] of (mass, momentum)). A partial is fed by one bucket, so by one thread, which adds
+// the bucket's slots in slot order from +0; after a barrier each thread, one
+// per node, adds its partials in tap order, skipping taps outside the state.
+// Those are the operations of the per-node gather in its order, so the
+// result is the same bit for bit, and no partial lives in registers.
+template <int D>
+struct MassTile;
+template <>
+struct MassTile<3> {
+  static constexpr int MIN_BLOCKS = 2;  // per SM: 110.6 KB of partials each
+};
+template <>
+struct MassTile<2> {
+  static constexpr int MIN_BLOCKS = 4;
+};
+
+// The tile of nodes of both passes' kernels: 2 x 8 x 16 nodes (D=3), 8 x 32
+// (D=2), the last axis fastest, so that a warp's lanes hold neighbouring
+// nodes or buckets.
+template <int D>
+__host__ __device__ constexpr int tile_dim(int a) {
+  return D == 3 ? (a == 0 ? 2 : a == 1 ? 8 : 16) : (a == 0 ? 8 : 32);
+}
+template <int D>
+__host__ __device__ constexpr int tile_nodes() {
+  return D == 3 ? tile_dim<3>(0) * tile_dim<3>(1) * tile_dim<3>(2)
+                : tile_dim<2>(0) * tile_dim<2>(1);
+}
+template <int D>
+__host__ __device__ constexpr int tile_buckets() {  // the tile's buckets and their halo
+  return D == 3 ? (tile_dim<3>(0) + 2) * (tile_dim<3>(1) + 2) * (tile_dim<3>(2) + 2)
+                : (tile_dim<2>(0) + 2) * (tile_dim<2>(1) + 2);
+}
+template <int D>
+__host__ __device__ constexpr size_t mass_tile_smem() {  // a 4-vector partial a tap and node
+  return (size_t)NTAPS<D> * tile_nodes<D>() * sizeof(float4);
+}
+
+// A partial (mass, momentum[D]) as a 4-vector of the grid's element type.
+template <typename GT>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using T = float4;
+};
+template <>
+struct Vec4<int> {
+  using T = int4;
+};
+template <typename V>
+__device__ __forceinline__ auto& vec_at(V& q, int e) {
+  return e == 0 ? q.x : e == 1 ? q.y : e == 2 ? q.z : q.w;
+}
+
+// One slot's values as stored (vel and C as VC), for loading one slot ahead.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <int D, typename VC>
+struct SlotVals {
+  float m, p[D];
+  VC v[D], c[D * D];
+  __device__ __forceinline__ void load(const float* __restrict__ pos, const VC* __restrict__ vel,
+                                       const VC* __restrict__ Cm, const float* __restrict__ mass,
+                                       size_t i, size_t KC) {
+    m = mass[i];
+    for (int a = 0; a < D; ++a) {
+      p[a] = pos[a * KC + i];
+      v[a] = vel[a * KC + i];
+    }
+    for (int e = 0; e < D * D; ++e) c[e] = Cm[e * KC + i];
+  }
+};
+
+// Params: the source's parameter block (g; fixed_mult for an int grid). GT:
+// the grid's element type, float or int (fixed point, GridCoding). Pass-1
+// mass and APIC momentum on the nodes of grid_geom(p.g, s), one block a
+// tile, one thread a node; x below is a node's state coordinate (go planes
+// below its grid plane), so a halo node gathers the state planes within its
+// reach.
 template <int D, typename VC, typename GT, class Params>
-__global__ void p2g_mass_mom(const float* __restrict__ pos, const VC* __restrict__ vel,
-                             const VC* __restrict__ Cm, const float* __restrict__ mass,
-                             GT* __restrict__ gmass, GT* __restrict__ gmom, Params p, Slab s) {
+__global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
+    p2g_mass_tile(const float* __restrict__ pos, const VC* __restrict__ vel,
+                  const VC* __restrict__ Cm, const float* __restrict__ mass,
+                  GT* __restrict__ gmass, GT* __restrict__ gmom, Params p, Slab s) {
   using G = GridCoding<GT>;
-  const GridGeom<D> g = p.g;
+  using V4 = typename Vec4<GT>::T;
+  constexpr int NN = tile_nodes<D>(), HB = tile_buckets<D>();
+  constexpr int NB = (HB + NN - 1) / NN;  // halo buckets a thread
+  extern __shared__ float4 smem[];
+  V4* part = reinterpret_cast<V4*>(smem);  // [NTAPS][NN] tap partials
+  const GridGeom<D>& g = p.g;
   const GridGeom<D> gg = grid_geom(g, s);
   const float mult = grid_mult<GT>(p);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= gg.C) return;
-  int x[D];
-  cell_coords(gg, c, x);
-  x[0] -= s.go;
   const size_t KC = (size_t)g.K * g.C;
+
+  // the tile's first node in state coordinates and the nodes it holds
+  // (fewer than its extent at the grid's far ends)
+  int t0[D], lim[D];
+  {
+    int b = blockIdx.x;
+    for (int a = D - 1; a >= 0; --a) {
+      const int nt = (gg.n[a] + tile_dim<D>(a) - 1) / tile_dim<D>(a);
+      const int first = (b % nt) * tile_dim<D>(a);  // on the grid's planes
+      lim[a] = min(tile_dim<D>(a), gg.n[a] - first);
+      t0[a] = a == 0 ? first - s.go : first;
+      b /= nt;
+    }
+  }
+  // halo bucket h (last axis fastest) has halo coordinates hc and is state
+  // cell t0 + hc - 1
+  auto halo_coords = [&](int h, int (&hc)[D], int (&bx)[D]) {
+    for (int a = D - 1; a >= 0; --a) {
+      hc[a] = h % (tile_dim<D>(a) + 2);
+      h /= tile_dim<D>(a) + 2;
+      bx[a] = t0[a] + hc[a] - 1;
+    }
+  };
+
+  // the occupancy masks of this thread's buckets h = threadIdx.x + j * NN
+  unsigned bits[NB];
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int h = threadIdx.x + j * NN;
+    bits[j] = 0;
+    if (h >= HB) continue;
+    int hc[D], bx[D];
+    halo_coords(h, hc, bx);
+    if (!in_grid(g, bx)) continue;
+    const int b = flat(g, bx);
+    for (int k = 0; k < g.K; ++k)
+      if (mass[(size_t)k * g.C + b] > 0.f) bits[j] |= 1u << k;
+    any = any || bits[j] != 0;
+  }
+
+  // this thread's node
+  int lx[D], x[D];
+  {
+    int r = threadIdx.x;
+    for (int a = D - 1; a >= 0; --a) {
+      lx[a] = r % tile_dim<D>(a);
+      r /= tile_dim<D>(a);
+    }
+  }
+  bool valid = true;
+  for (int a = 0; a < D; ++a) {
+    x[a] = t0[a] + lx[a];
+    valid = valid && lx[a] < lim[a];
+  }
+  int gx[D];  // the node on the grid's planes
+  for (int a = 0; a < D; ++a) gx[a] = a == 0 ? x[a] + s.go : x[a];
+  const int c = flat(gg, gx);
+
+  if (!__syncthreads_or(any)) {  // no slot reaches the tile: every sum is +0
+    if (!valid) return;
+    gmass[c] = 0;
+    for (int a = 0; a < D; ++a) gmom[a * (size_t)gg.C + c] = 0;
+    return;
+  }
+  for (int e = threadIdx.x; e < NTAPS<D> * NN; e += NN) part[e] = V4{};
+  __syncthreads();
+
+#pragma unroll 1
+  for (int j = 0; j < NB; ++j) {
+    unsigned occ = 0;  // bits[j], selected without indexing the array by j
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+      if (q == j) occ = bits[q];
+    if (!occ) continue;
+    int hc[D], bx[D];
+    halo_coords(threadIdx.x + j * NN, hc, bx);
+    const int b = flat(g, bx);
+    // reach[a] bit r: the node bucket + r - 1 (tile coordinate hc + r - 2)
+    // on axis a is one the tile holds
+    unsigned reach[D];
+    float cb[D];  // the bucket's centre
+    for (int a = 0; a < D; ++a) {
+      reach[a] = 0;
+      for (int r = 0; r < 3; ++r) {
+        const int l = hc[a] + r - 2;
+        if (l >= 0 && l < lim[a]) reach[a] |= 1u << r;
+      }
+      cb[a] = global_coord(s, a, bx[a]) + 0.5f;
+    }
+    // the bucket's occupied slots in slot order, each loaded while the one
+    // before it is added
+    SlotVals<D, VC> nx;
+    nx.load(pos, vel, Cm, mass, (size_t)(__ffs(occ) - 1) * g.C + b, KC);
+    while (occ) {
+      const SlotVals<D, VC> sv = nx;
+      occ &= occ - 1;
+      if (occ) nx.load(pos, vel, Cm, mass, (size_t)(__ffs(occ) - 1) * g.C + b, KC);
+      const float m = sv.m;
+      float d[D], v[D], cm[D][D], aw[D][3], cz[D][3];
+      for (int a = 0; a < D; ++a) {
+        d[a] = sv.p[a] - cb[a];
+        v[a] = to_float(sv.v[a]);
+      }
+      for (int e = 0; e < D * D; ++e) cm[e / D][e % D] = to_float(sv.c[e]);
+      for (int a = 0; a < D; ++a)
+        for (int r = 0; r < 3; ++r) aw[a][r] = axis_weight(r, d[a]);
+      // C[row][D-1] * dist on the last axis, dist = (r - 1) - d
+      for (int row = 0; row < D; ++row)
+        for (int r = 0; r < 3; ++r) cz[row][r] = cm[row][D - 1] * ((float)(r - 1) - d[D - 1]);
+      // the taps by their digits on axes 0 .. D-2 (lead l), then on the
+      // last axis (z): what a lead's taps share is computed once for it, in
+      // the operations' order: the weight product of the lead's axes and
+      // matvec_row's sum over their columns
+#pragma unroll
+      for (int l = 0; l < NTAPS<D> / 3; ++l) {
+        int r[D];
+        tap_digits(l * 3, r);
+        bool in = true;
+        for (int a = 0; a < D - 1; ++a) in = in && ((reach[a] >> r[a]) & 1u);
+        if (!in) continue;
+        float wl = aw[0][r[0]], cl[D];
+        for (int a = 1; a < D - 1; ++a) wl = wl * aw[a][r[a]];
+        for (int row = 0; row < D; ++row) {
+          cl[row] = cm[row][0] * ((float)(r[0] - 1) - d[0]);
+          for (int col = 1; col < D - 1; ++col)
+            cl[row] = cl[row] + cm[row][col] * ((float)(r[col] - 1) - d[col]);
+        }
+#pragma unroll
+        for (int z = 0; z < 3; ++z) {
+          if (!((reach[D - 1] >> z) & 1u)) continue;
+          r[D - 1] = z;
+          const float mass_c = (wl * aw[D - 1][z]) * m;  // tap_weight, times the mass
+          int n = 0, tn = 0;  // the node in the tile; its tap 2 - r
+          for (int a = 0; a < D; ++a) {
+            n = n * tile_dim<D>(a) + hc[a] + r[a] - 2;
+            tn = tn * 3 + 2 - r[a];
+          }
+          V4 u = part[tn * NN + n];
+          u.x = G::add(u.x, G::enc(mass_c, mult));
+          for (int a = 0; a < D; ++a)  // matvec_row, then v + C * dist
+            vec_at(u, a + 1) =
+                G::add(vec_at(u, a + 1), G::enc(mass_c * (v[a] + (cl[a] + cz[a][z])), mult));
+          part[tn * NN + n] = u;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (!valid) return;
+
   GT gm = 0, gp[D];
   for (int a = 0; a < D; ++a) gp[a] = 0;
 #pragma unroll
   for (int t = 0; t < NTAPS<D>; ++t) {
-    // bucket b = c + (t - 1); its particles reach node c with tap 2 - t
-    int tt[D], bx[D], r[D];
-    float cb[D];
+    int tt[D], bx[D];
     tap_digits(t, tt);
-    for (int a = 0; a < D; ++a) {
-      bx[a] = x[a] + tt[a] - 1;
-      r[a] = 2 - tt[a];
-      cb[a] = (global_coord(s, a, x[a]) + 0.5f) + (float)(tt[a] - 1);
-    }
-    if (!in_grid(g, bx)) continue;
-    const int b = flat(g, bx);
-    GT pm = 0, pp[D];
-    for (int a = 0; a < D; ++a) pp[a] = 0;
-    for (int k = 0; k < g.K; ++k) {
-      const size_t i = (size_t)k * g.C + b;
-      const float m = mass[i];
-      if (!(m > 0.f)) continue;
-      float d[D], dist[D], Cl[D * D], v[D];
-      for (int a = 0; a < D; ++a) d[a] = pos[a * KC + i] - cb[a];
-      const float w = tap_weight(r, d);
-      for (int a = 0; a < D; ++a) dist[a] = (float)(r[a] - 1) - d[a];
-      for (int a = 0; a < D * D; ++a) Cl[a] = load_vc(Cm, a * KC + i);
-      for (int a = 0; a < D; ++a) v[a] = load_vc(vel, a * KC + i);
-      const float mass_c = w * m;
-      pm = G::add(pm, G::enc(mass_c, mult));
-      for (int a = 0; a < D; ++a)
-        pp[a] = G::add(pp[a], G::enc(mass_c * (v[a] + matvec_row<D>(Cl, a, dist)), mult));
-    }
-    gm = G::add(gm, pm);
-    for (int a = 0; a < D; ++a) gp[a] = G::add(gp[a], pp[a]);
+    for (int a = 0; a < D; ++a) bx[a] = x[a] + tt[a] - 1;
+    if (!in_grid(g, bx)) continue;  // a tap outside the state adds nothing
+    V4 u = part[t * NN + threadIdx.x];
+    gm = G::add(gm, u.x);
+    for (int a = 0; a < D; ++a) gp[a] = G::add(gp[a], vec_at(u, a + 1));
   }
   gmass[c] = gm;
   for (int a = 0; a < D; ++a) gmom[a * (size_t)gg.C + c] = gp[a];
@@ -224,22 +445,6 @@ struct ForceTile<2> {
   static constexpr int KS = 4;
   static constexpr int MIN_BLOCKS = 4;
 };
-// The tile's extent on axis a: 2 x 8 x 16 nodes (D=3), 8 x 32 (D=2), the
-// last axis fastest, so a warp's lanes hold neighbouring nodes.
-template <int D>
-__host__ __device__ constexpr int tile_dim(int a) {
-  return D == 3 ? (a == 0 ? 2 : a == 1 ? 8 : 16) : (a == 0 ? 8 : 32);
-}
-template <int D>
-__host__ __device__ constexpr int tile_nodes() {
-  return D == 3 ? tile_dim<3>(0) * tile_dim<3>(1) * tile_dim<3>(2)
-                : tile_dim<2>(0) * tile_dim<2>(1);
-}
-template <int D>
-__host__ __device__ constexpr int tile_buckets() {  // the tile's buckets and their halo
-  return D == 3 ? (tile_dim<3>(0) + 2) * (tile_dim<3>(1) + 2) * (tile_dim<3>(2) + 2)
-                : (tile_dim<2>(0) + 2) * (tile_dim<2>(1) + 2);
-}
 template <int D>
 __host__ __device__ constexpr size_t force_tile_smem() {  // records, occupancy masks, chunk count
   return (size_t)ForceTile<D>::KS * ForceTile<D>::NG * tile_buckets<D>() * sizeof(float4) +
@@ -755,13 +960,24 @@ __global__ void migrate_gather(const int* idx, const T* __restrict__ vel,
 constexpr int THREADS = 256;
 
 // Kernel P's first launch: pass-1 mass and momentum on the nodes of
-// grid_geom(p.g, s). The sharded stage 1 (p2g_shard.cu) is this launch alone.
+// grid_geom(p.g, s), over its tiles. The sharded stage 1 (p2g_shard.cu)
+// and the per-pass kernel A (planes.cu) are this launch alone.
 template <int D, typename VC, typename GT, class Params>
 cudaError_t launch_p2g_pass1(const Params& p, const float* pos, const VC* vel, const VC* Cm,
                              const float* mass, GT* gmass, GT* gmom, cudaStream_t stream,
                              const Slab& s = whole_grid()) {
-  p2g_mass_mom<D, VC, GT><<<blocks_for(grid_geom(p.g, s).C, THREADS), THREADS, 0, stream>>>(
-      pos, vel, Cm, mass, gmass, gmom, p, s);
+  if (p.g.K > 32) return cudaErrorInvalidValue;  // one occupancy bit a slot
+  const GridGeom<D> gg = grid_geom(p.g, s);
+  unsigned tiles = 1;
+  for (int a = 0; a < D; ++a) tiles *= (gg.n[a] + tile_dim<D>(a) - 1) / tile_dim<D>(a);
+  constexpr size_t smem = mass_tile_smem<D>();
+  auto kern = p2g_mass_tile<D, VC, GT, Params>;
+  if constexpr (smem > 48 * 1024) {  // above 48 KB only when asked for
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<tiles, tile_nodes<D>(), smem, stream>>>(pos, vel, Cm, mass, gmass, gmom, p, s);
   return cudaGetLastError();
 }
 

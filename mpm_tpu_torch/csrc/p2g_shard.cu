@@ -19,15 +19,17 @@
 // the grid velocity the same way).
 //
 // What bounds them on this card: what bounds kernel P (p2g_update.cu), of
-// which they are the three launches cut in two: load throughput from the
-// caches for the 27-fold gathers of stage 1, the issue rate of pass 2's
-// arithmetic in stage 2, not device memory. The slab adds 4 state planes
-// and 2 grid planes to every L - 4 own ones.
+// which they are the three launches cut in two: the issue rate of the two
+// passes' per-tap arithmetic over each tile's slots and the latency of
+// loading those slots from L2, not device memory. The slab adds 4 state
+// planes and 2 grid planes to every L - 4 own ones.
 //
-// The design: bucket_kernels.cuh's p2g_mass_mom (stage 1), p2g_coef and
-// p2g_force_tile (stage 2: staged tiles of slots in shared memory, kernel
-// P's pass 2) with the slab's geometry (mpm::Slab: offset x0, go = 1), the
-// same device code as kernel P. Stage 1 keeps the pass-1
+// The design: bucket_kernels.cuh's p2g_mass_tile (stage 1: each occupied
+// slot of a tile and its halo loaded once, its contributions added to tap
+// partials in shared memory), p2g_coef and p2g_force_tile (stage 2: staged
+// tiles of slots in shared memory, kernel P's pass 2) with the slab's
+// geometry (mpm::Slab: offset x0, go = 1), the same device code as kernel
+// P. Stage 1 keeps the pass-1
 // momentum for stage 2 rather than emitting it again with the force, as the
 // TPU's stage 2 does: each grid node's value is then computed by the same
 // operations in the same order from copies of the same slots as in

@@ -7,32 +7,32 @@
 // plain PyTorch version is mpm_tpu_torch/ops/cuda/p2g_update.p2g_update_plain.
 //
 // What bounds it on this card: every slot's state (pos 12 B, mass 4 B, vel
-// 12 B or 6 B in bf16, C 36 B or 18 B) is read by the 27 cells around it,
-// once in pass 1 and once more (without vel) in pass 2, and the density pass
+// 12 B or 6 B in bf16, C 36 B or 18 B) reaches the 27 nodes around it, once
+// in pass 1 and once more (without vel) in pass 2, and the density pass
 // reads 27 grid masses per slot. From device memory that is about 150 B per
-// slot per substep (f32 storage), but the 27-fold re-reads go through L1/L2:
-// some 4 KB of cache traffic per slot per substep. Load throughput from the
-// caches, and the latency of the dependent gathers, bound it; the FLOPs
-// (about 2,000 per slot) do not.
+// slot per substep (f32 storage); what bounds the kernel is the issue rate
+// of the per-tap arithmetic (about 2,000 FLOPs per slot, unfused) and the
+// latency of loading each tile's slots from L2, once for each tile whose
+// halo holds them.
 //
-// The design: the bucket layout makes every pass a gather, so each grid
-// node is owned by one thread that sums its 27 neighbour buckets' slots in
-// the plain version's order and, built with --fmad=false, rounds as it
-// does: the two agree bit for bit. Three launches, bucket_kernels.cuh's
-// p2g_mass_mom and p2g_coef (one thread per cell or slot; consecutive
-// threads own consecutive z cells, so every slot read is coalesced, and
-// empty slots are skipped after one 4-byte mass read) and p2g_force_tile:
-// pass 2 and the grid update by one block per 2 x 8 x 16 nodes, which
-// stages the occupied slots of the tile's 4 x 10 x 18 buckets in shared
-// memory once (pos, a_p, b_mu and C as f32, two slot indices at a time)
-// and keeps each node's 27 tap partials in registers, so that each slot is
-// loaded and converted once a block rather than once for each of the 27
-// nodes it reaches. The TPU kernel's plane sweeps and VMEM rings do not
-// carry over. Output: grid velocity [3, C] and grid
-// mass [C], float32 or int32. In fixed-point mode (the S4 scene) the grid is
-// int32: each slot's contribution is encoded and summed as integers, the
-// density and the grid update decode, and the grid velocity is encoded
-// again (p2g_fused.py:91-100, 286-290, 368-405).
+// The design: the bucket layout makes every pass a gather, each grid node's
+// sums taking its 27 neighbour buckets' slots in the plain version's order,
+// so, built with --fmad=false, it rounds as the plain version does: the two
+// agree bit for bit. Three launches of bucket_kernels.cuh, the two passes
+// by one block per 2 x 8 x 16 nodes, each loading the occupied slots of the
+// tile's 4 x 10 x 18 buckets once: p2g_mass_tile (pass 1: each thread owns
+// halo buckets and adds its slots' contributions in slot order to the
+// nodes' 27 tap partials in shared memory, 110.6 KB a block; then each node
+// sums its partials in tap order), p2g_coef (one thread per slot) and
+// p2g_force_tile (pass 2 and the grid update: the slots staged in shared
+// memory as f32 records, two slot indices at a time, and each node's 27 tap
+// partials in registers). So each slot is loaded and converted once a block
+// rather than once for each of the 27 nodes it reaches. The TPU kernel's
+// plane sweeps and VMEM rings do not carry over. Output: grid velocity [3,
+// C] and grid mass [C], float32 or int32. In fixed-point mode (the S4
+// scene) the grid is int32: each slot's contribution is encoded and summed
+// as integers, the density and the grid update decode, and the grid
+// velocity is encoded again (p2g_fused.py:91-100, 286-290, 368-405).
 
 #include "p2g_params.cuh"
 
@@ -52,10 +52,10 @@ cudaError_t launch(const mpm::P2GParams& p, const float* pos, const void* vel, c
                             gv, s);
 }
 
-template <typename VC>
-int tile_blocks_per_sm() {
-  auto kern = mpm::p2g_force_tile<3, VC, float, true, mpm::P2GParams>;
-  const size_t smem = mpm::force_tile_smem<3>();
+// Blocks of `kern` (D = 3, a tile a block) with `smem` bytes of dynamic
+// shared memory that fit on one SM, or -1 on an error.
+template <class K>
+int blocks_per_sm(K kern, size_t smem) {
   int n = -1;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
           cudaSuccess ||
@@ -73,10 +73,20 @@ extern "C" {
 // mirror of P2GParams.
 int p2g_update_params_size() { return (int)sizeof(mpm::P2GParams); }
 
-// Blocks of pass 2's tile kernel (D = 3, float32 grid, bf16 or float32
-// C) that fit on one SM, or -1 on an error; for utils/kernel_resources.py.
+// Blocks of pass 2's and pass 1's tile kernels (D = 3, float32 grid, bf16
+// or float32 vel and C) that fit on one SM, or -1 on an error; for
+// utils/kernel_resources.py.
 int p2g_force_tile_blocks_per_sm(int vc_bf16) {
-  return vc_bf16 ? tile_blocks_per_sm<__nv_bfloat16>() : tile_blocks_per_sm<float>();
+  using BF = __nv_bfloat16;
+  const size_t smem = mpm::force_tile_smem<3>();
+  return vc_bf16 ? blocks_per_sm(mpm::p2g_force_tile<3, BF, float, true, mpm::P2GParams>, smem)
+                 : blocks_per_sm(mpm::p2g_force_tile<3, float, float, true, mpm::P2GParams>, smem);
+}
+int p2g_mass_tile_blocks_per_sm(int vc_bf16) {
+  using BF = __nv_bfloat16;
+  const size_t smem = mpm::mass_tile_smem<3>();
+  return vc_bf16 ? blocks_per_sm(mpm::p2g_mass_tile<3, BF, float, mpm::P2GParams>, smem)
+                 : blocks_per_sm(mpm::p2g_mass_tile<3, float, float, mpm::P2GParams>, smem);
 }
 
 // vc_bf16: vel and C are stored as bfloat16 (else float32). fixed: the grid

@@ -13,16 +13,18 @@
 //
 // What bounds them on this card: they are kernel P and F cut at the TPU's
 // pass boundaries, so what bounds P and F bounds them. A reads the state of
-// every occupied slot (pos, vel, C: 60 B in float32) through 27-fold cache
-// re-reads and writes the grid mass and momentum (16 B a cell); B reads pos
+// every occupied slot (pos, vel, C: 60 B in float32), once for each tile
+// whose halo holds it, and writes the grid mass and momentum (16 B a cell);
+// B reads pos
 // and C again with the grid mass and writes a second momentum; D reads pos
 // and the grid velocity and writes vel and C (48 B a slot, every slot); E
 // reads the whole state and writes it once, choosing by the positions and
-// masses in three phases. Load throughput from the caches bounds A, the
-// issue rate B, device memory D and E.
+// masses in three phases. The issue rate and the latency of loading the
+// tiles' slots bound A and B, device memory D and E.
 //
 // The design: bucket_kernels.cuh's kernels for D = 3, the device code of
-// P and F, so the rounding is one source's. A is p2g_mass_mom; B is
+// P and F, so the rounding is one source's. A is p2g_mass_tile, kernel P's
+// first launch (launch_p2g_pass1); B is
 // p2g_coef then p2g_force_tile without the update, pass 2 from zero (the
 // sum with A's momentum is the caller's, as the TPU left it to XLA); D is
 // g2p_vc; E is kernel F's migration: the migrate_reject / migrate_select
@@ -49,10 +51,8 @@ int planes_params_size() { return (int)sizeof(P2GParams); }
 int p2g1_planes(const void* params, const float* pos, const float* vel, const float* Cm,
                 const float* mass, float* gmass, float* gmom, void* stream) {
   const P2GParams& p = *(const P2GParams*)params;
-  mpm::p2g_mass_mom<3, float, float><<<blocks_for(p.g.C, THREADS), THREADS, 0,
-                                       (cudaStream_t)stream>>>(pos, vel, Cm, mass, gmass,
-                                                               gmom, p, mpm::whole_grid());
-  return (int)cudaGetLastError();
+  return (int)mpm::launch_p2g_pass1<3>(p, pos, vel, Cm, mass, gmass, gmom,
+                                       (cudaStream_t)stream);
 }
 
 // B: pos, C, mass and A's gmass in; gmom2 [3, C] (pass 2 from zero) out;

@@ -24,8 +24,9 @@
 // cell or slot over its 9 neighbours. The sums run in the plain version's
 // order, and with --fmad=false every multiply and add rounds apart as the
 // plain version's do, so the two agree bit for bit.
-//   sim2d, four launches: p2g_mass_mom, p2g_coef, p2g_force_tile (tiles of
-//     8 x 32 nodes; legacy strain optional; slip / stick / friction bands),
+//   sim2d, four launches: p2g_mass_tile, p2g_coef, p2g_force_tile (both tile
+//     kernels on tiles of 8 x 32 nodes; legacy strain optional; slip /
+//     stick / friction bands),
 //     g2p_tail (the 2D mouse interactions pack 6 values: cx, cy, radius,
 //     strength, inv_falloff, active).
 //   migrate2d, for axis 1 then axis 0, two launches each: migrate_reject

@@ -49,6 +49,13 @@ from .stress import eos_pressure
 CFL_EPS = 1e-3  # cell + 2 - eps still floors to cell + 1 for any res < 2^10
 
 
+def cell_top(x: torch.Tensor, n: float) -> torch.Tensor:
+    """The highest position a clamp keeps below x + n: (x + n) - CFL_EPS,
+    in the JAX source's order (XLA on the CPU folds n - CFL_EPS first,
+    tests/torch_xla_ref.folded_tops)."""
+    return x + n - CFL_EPS
+
+
 @dataclasses.dataclass(frozen=True)
 class Slab:
     """Where a bucket state's arrays sit in an x-slab decomposition
@@ -373,7 +380,7 @@ def advect_tail(state: BucketState, vel: torch.Tensor, Cmat: torch.Tensor,
     # CFL bucket clamp: a particle faster than one cell per substep would
     # leave its bucket's +-1-cell migration range; clamp it and count it
     cell = center[:, None, :] - 0.5
-    pos_cfl = torch.minimum(torch.maximum(pos, cell - 1.0), cell + 2.0 - CFL_EPS)
+    pos_cfl = torch.minimum(torch.maximum(pos, cell - 1.0), cell_top(cell, 2.0))
     moved = occ & torch.any(pos_cfl != pos, dim=0)
     pos = pos_cfl
 
@@ -449,7 +456,7 @@ def reject_overflow(state: BucketState, config: SimConfig, axis: int,
         rej = rej | rej_ceil
         ceiling = ceiling + _count(rej_ceil, gate)
     pos_ax = torch.minimum(torch.maximum(state.pos[axis], coord[None, :]),
-                           coord[None, :] + 1.0 - CFL_EPS)
+                           cell_top(coord[None, :], 1.0))
     new_pos = state.pos.clone()
     new_pos[axis] = torch.where(rej, pos_ax, state.pos[axis])
     return state.replace(pos=new_pos,

@@ -1,7 +1,7 @@
 """Registers, spills and occupancy of the bucket kernels on one CUDA card:
-what `nvcc -Xptxas -v` reports for each instantiation of pass 2's tile
-kernel and the migration's kernels (csrc/bucket_kernels.cuh), and the
-blocks of the tile kernel that fit on one SM
+what `nvcc -Xptxas -v` reports for each instantiation of the two P2G
+passes' tile kernels and the migration's kernels (csrc/bucket_kernels.cuh),
+and the blocks of each tile kernel that fit on one SM
 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 
     python -m mpm_tpu_torch.utils.kernel_resources
@@ -22,7 +22,7 @@ import torch
 from ..ops.cuda import build
 
 SOURCES = ("p2g_update", "g2p_migrate", "p2g_shard", "planes", "substep2d")
-KERNELS = ("p2g_force_tile", "migrate_reject", "migrate_select", "migrate_gather", "g2p_tail")
+KERNELS = ("p2g_mass_tile", "p2g_force_tile", "migrate_reject", "migrate_select", "migrate_gather", "g2p_tail")
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -66,13 +66,16 @@ def main() -> None:
         for (name, regs, st, ld), pretty in zip(rows, _demangle([r[0] for r in rows])):
             print(f"  {regs:4d} registers, spill stores {st} B, loads {ld} B  {pretty[:150]}")
     lib = build.load("p2g_update")
-    lib.p2g_force_tile_blocks_per_sm.argtypes = [ctypes.c_int]
-    lib.p2g_force_tile_blocks_per_sm.restype = ctypes.c_int
     torch.cuda.init()
-    for bf16 in (1, 0):
-        n = lib.p2g_force_tile_blocks_per_sm(bf16)
-        print(f"p2g_force_tile (D=3, {'bf16' if bf16 else 'f32'} C, float grid): {n} blocks of "
-              f"256 threads an SM ({n * 8} of 64 warps) [{torch.cuda.get_device_name(0)}]")
+    for entry, smem in (("p2g_mass_tile", "110.6 KB"), ("p2g_force_tile", "95.0 KB")):
+        fn = getattr(lib, f"{entry}_blocks_per_sm")
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
+        for bf16 in (1, 0):
+            n = fn(bf16)
+            print(f"{entry} (D=3, {'bf16' if bf16 else 'f32'} vel and C, float grid, {smem} of "
+                  f"shared memory a block): {n} blocks of 256 threads an SM ({n * 8} of 64 "
+                  f"warps) [{torch.cuda.get_device_name(0)}]")
 
 
 if __name__ == "__main__":

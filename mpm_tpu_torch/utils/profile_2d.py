@@ -25,7 +25,7 @@ from .timing import fenced_windows
 SUBSTEPS = 5  # a step call
 WARM_CALLS = 20
 WINDOW_CALLS = 200  # 1,000 substeps a window
-SIM2D_KERNELS = ("p2g_mass_mom", "p2g_coef", "p2g_force_tile", "g2p_tail")
+SIM2D_KERNELS = ("p2g_mass_tile", "p2g_coef", "p2g_force_tile", "g2p_tail")
 MIGRATE2D_KERNELS = ("migrate_reject", "migrate_select", "migrate_gather")
 
 

@@ -650,3 +650,127 @@ def test_p2g_pass2_tiles_match_plain_on_odd_grid(dev, storage, legacy_strain):
         assert torch.equal(planes.p2g2_planes(state, w1.mass, config, fluid),
                            planes.p2g2_plain(state, w1.mass, config, fluid))
     torch.cuda.synchronize()
+
+
+# ---- pass 1's tiles (p2g_mass_tile) under stress -------------------------
+
+
+def _filled_state(dev, res, k, fill, storage="float32", fixed=False, seed=21):
+    """K slots at seeded random places in every cell where `fill` ([C] bool)
+    holds, with seeded random mass, vel and C; the other cells empty."""
+    from mpm_tpu_torch.core.params import FluidParams, SimConfig
+
+    config = SimConfig(grid_res=res, bin_capacity=k, storage_dtype=storage, fixed_point=fixed)
+    rng = np.random.default_rng(seed)
+    d, c = len(res), int(np.prod(res))
+    corner = np.stack(np.unravel_index(np.arange(c), res)).astype(np.float32)[:, None, :]
+    occ = np.broadcast_to(fill[None, :], (k, c))
+    pos = np.where(occ, corner + rng.uniform(0.0, 1.0, (d, k, c)), corner + 0.5)
+    mass = np.where(occ, rng.uniform(0.5, 1.5, (k, c)), 0.0)
+    vel = np.where(occ, rng.normal(size=(d, k, c)), 0.0)
+    Cm = np.where(occ, rng.normal(size=(d, d, k, c)) * 0.3, 0.0)
+    ids = np.where(occ, np.arange(k * c).reshape(k, c), -1)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    state = bucketed.BucketState(pos=t(pos), vel=t(vel, config.vc_dtype),
+                                 C=t(Cm, config.vc_dtype), mass=t(mass),
+                                 ids=t(ids, torch.int32), lost=zero, cfl_clamped=zero,
+                                 deferred=zero, ceiling=zero)
+    return config, FluidParams.create(dim=d), state
+
+
+def _cells(res, where):
+    """[C] bool of the cells (coordinates [D, C]) `where` picks, edge planes
+    excluded (the clamps keep them empty)."""
+    co = np.stack(np.unravel_index(np.arange(int(np.prod(res))), res))
+    inner = np.all([(co[a] >= 1) & (co[a] <= res[a] - 2) for a in range(len(res))], axis=0)
+    return inner & where(co)
+
+
+# case: (K, storage, fixed point, cells); 10 x 19 x 37 is no multiple of the
+# 2 x 8 x 16 tile on y or z. "full": every slot of the interior cells
+# (bit 31 at K=32); "edges": only the buckets just outside each tile's y and
+# z faces, its halo
+PASS1_CASES = {
+    "k32_full_f32": (32, "float32", False, "full"),
+    "k32_full_bf16": (32, "bfloat16", False, "full"),
+    "k32_full_f32_fixed": (32, "float32", True, "full"),
+    "k32_full_bf16_fixed": (32, "bfloat16", True, "full"),
+    "empty": (8, "float32", False, "none"),
+    "edges_bf16": (8, "bfloat16", False, "edges"),
+    "edges_fixed": (8, "float32", True, "edges"),
+}
+PASS1_CELLS = {
+    "full": lambda co: np.ones(co.shape[1], bool),
+    "none": lambda co: np.zeros(co.shape[1], bool),
+    "edges": lambda co: np.isin(co[1] % 8, (0, 7)) & np.isin(co[2] % 16, (0, 15)),
+}
+
+
+@pytest.mark.parametrize("case", list(PASS1_CASES))
+def test_p2g_pass1_tiles_stress_match_plain(dev, case):
+    """Pass 1's tile kernel through each of its 3D launchers on stress
+    states, bit for bit the plain bucketed.p2g_pass1: kernel P (its grid
+    mass, and the grid velocity after pass 2), the sharded stage 1 on the
+    whole state as a slab (go = 1) and, in float32, kernel A."""
+    k, storage, fixed, cells = PASS1_CASES[case]
+    res = (10, 19, 37)
+    config, fluid, state = _filled_state(dev, res, k, _cells(res, PASS1_CELLS[cells]), storage,
+                                         fixed)
+    n0 = (kp.launches, ks.p2g1_launches, planes.p2g1_launches)
+    got = kp.p2g_update(state, config, fluid)
+    want = kp.p2g_update_plain(state, config, fluid)
+    assert torch.equal(got.mass, want.mass) and torch.equal(got.mom, want.mom)
+    g1 = ks.p2g1_shard(state, config, fluid, 0)
+    w1 = ks.p2g1_shard_plain(state, config, fluid, 0)
+    assert torch.equal(g1.mass, w1.mass) and torch.equal(g1.mom, w1.mom)
+    a = storage == "float32" and not fixed
+    if a:
+        ga, wa = planes.p2g1_planes(state, config), planes.p2g1_plain(state, config)
+        assert torch.equal(ga.mass, wa.mass) and torch.equal(ga.mom, wa.mom)
+    torch.cuda.synchronize()
+    assert (kp.launches, ks.p2g1_launches, planes.p2g1_launches) == (n0[0] + 1, n0[1] + 1,
+                                                                     n0[2] + int(a))
+    if cells == "none":
+        assert not bool(want.mass.any()) and not bool(w1.mass.any())
+    else:
+        assert int((w1.mass != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("storage, fixed", [("float32", False), ("bfloat16", False),
+                                            ("float32", True), ("bfloat16", True)])
+def test_p2g1_shard_stress_at_the_global_ends(dev, storage, fixed):
+    """The sharded stage 1 on the first slab (x0 = -2) and the last slab of
+    a state with every interior slot occupied (K=32), bit for bit its plain
+    version: the slab's padding reaches past both ends of the grid."""
+    res = (14, 19, 37)
+    config, fluid, state = _filled_state(dev, res, 32, _cells(res, PASS1_CELLS["full"]),
+                                         storage, fixed, seed=23)
+    loc, pc = 7, res[1] * res[2]
+    padded = domain._exchange_state_halo(
+        domain.shard_bucket_state(state, config, domain.SlabMesh.on(dev, 2)).slabs, pc)
+    cfg = bucketed.slab_config(config, loc + 4)
+    for a, p in enumerate(padded):
+        x0 = a * loc - 2
+        got, want = ks.p2g1_shard(p, cfg, fluid, x0), ks.p2g1_shard_plain(p, cfg, fluid, x0)
+        assert torch.equal(got.mass, want.mass) and torch.equal(got.mom, want.mom), x0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cells", ["full", "edges"])
+def test_sim2d_pass1_stress_matches_plain(dev, cells):
+    """sim2d (pass 1's tile kernel at D=2, 8 x 32 tiles) on a 21 x 45 grid,
+    every interior slot occupied at K=32 or only the buckets just outside
+    each tile's faces, bit for bit its plain version."""
+    res = (21, 45)
+    where = {"full": lambda co: np.ones(co.shape[1], bool),
+             "edges": lambda co: np.isin(co[0] % 8, (0, 7)) & np.isin(co[1] % 32, (0, 31))}
+    config, fluid, state = _filled_state(dev, res, 32, _cells(res, where[cells]))
+    n0 = k2d.sim2d_launches
+    got = k2d.sim2d(state, config, fluid, ())
+    torch.cuda.synchronize()
+    assert k2d.sim2d_launches == n0 + 1
+    _assert_bit_equal(got, k2d.sim2d_plain(state, config, fluid, ()))

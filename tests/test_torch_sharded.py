@@ -17,8 +17,10 @@ from torch_shard_cases import check_matrix_case, configs
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("n_slabs", [2, 4, 8])
-@pytest.mark.parametrize("storage", ["f32", "bf16"])
+# "full": every slot of the interior cells occupied (K=8, the comparison's
+# K), on 2 slabs, one at each global end of the grid
+@pytest.mark.parametrize("storage, n_slabs", [(s, n) for s in ("f32", "bf16") for n in (2, 4, 8)]
+                         + [("full", 2)])
 def test_sharded_step_matches_jax_and_unsharded(storage, n_slabs):
     check_matrix_case(storage, n_slabs)
 

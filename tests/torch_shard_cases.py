@@ -13,15 +13,17 @@ included, with the port's own IEEE decode."""
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from mpm_tpu.models.scenes import fluid_3d as jfluid_3d
+from mpm_tpu_torch.core.state import make_state
 from mpm_tpu_torch.models.scenes import fluid_3d
 from mpm_tpu_torch.ops import bucketed as tb
 from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.parallel import domain
-from torch_xla_ref import (FIELDS, STORAGE, assert_equal_to_xla, reciprocal_decode, state_arrays,
-                           xla_substeps)
+from torch_xla_ref import (FIELDS, STORAGE, assert_equal_to_xla, folded_tops, reciprocal_decode,
+                           state_arrays, xla_substeps)
 
 
 
@@ -43,8 +45,28 @@ def configs(storage):
     return j.config.replace(bin_capacity=8, **kw), t.config.replace(bin_capacity=8, **kw)
 
 
+def full_state(config) -> tb.BucketState:
+    """K particles at seeded random places in every interior cell of the
+    scene's grid (the edge planes stay empty, as the clamps keep them), with
+    seeded random velocities: every slot of those cells occupied, the most
+    a cell holds (P2G's partials take K slots each; the migration defers
+    every move into a full cell)."""
+    rng = np.random.default_rng(7)
+    k, res = config.bin_capacity, np.array(config.grid_res)
+    cells = np.stack(np.meshgrid(*(np.arange(1, n - 1) for n in res), indexing="ij"),
+                     -1).reshape(-1, 3)
+    pos = np.repeat(cells, k, axis=0) + rng.uniform(0.0, 1.0, (len(cells) * k, 3))
+    vel = rng.normal(0.0, 2.0, pos.shape)
+    st = tb.from_simstate(make_state(pos.astype(np.float32), "cpu",
+                                     vel=vel.astype(np.float32)), config)
+    assert bool((st.mass.reshape(k, *res)[:, 1:-1, 1:-1, 1:-1] > 0).all())
+    return st
+
+
 @functools.lru_cache(maxsize=None)
 def initial(storage) -> tb.BucketState:
+    if storage == "full":
+        return full_state(configs(storage)[1])
     return tb.from_simstate(scenes()[1].state, configs(storage)[1])
 
 
@@ -85,9 +107,9 @@ def check_matrix_case(storage, n_slabs):
     ref, want = references(storage, False)
     got = sharded(storage, n_slabs, False)
     assert_bit_equal(got, ref)
-    if storage == "fixed":  # the port's engine with XLA's decode
+    if storage in ("fixed", "full"):  # the port's engine with XLA's decode or clamp tops
         _, tcfg = configs(storage)
-        with reciprocal_decode():
+        with reciprocal_decode() if storage == "fixed" else folded_tops():
             got = make_step(tcfg, mode="bucketed", substeps=3)(initial(storage), scenes()[1].fluid)
     assert_equal_to_xla(got, want)
 
