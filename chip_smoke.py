@@ -64,11 +64,12 @@ from mpm_tpu_torch.render import (Camera, background_for_view, bucket_frame_2d, 
 from mpm_tpu_torch.render import blur_kernel as kb
 from mpm_tpu_torch.render import extract_kernel as kx
 from mpm_tpu_torch.render.image import read_png_rgb
-from mpm_tpu_torch.render.splat import splat_cells, surface_band_uncovered
+from mpm_tpu_torch.render.splat import surface_band_uncovered
 from mpm_tpu_torch.utils import roofline
 from mpm_tpu_torch.utils.render_bench import (N_POOL, frame_windows, pool_window, recipe_360,
                                               recipe_1080, settle)
 from mpm_tpu_torch.utils.profile_2d import WINDOW_CALLS, warm_bench2d
+from mpm_tpu_torch.utils.profile_render_kernels import BL_ARGS, blur_buffers, device_ms
 from mpm_tpu_torch.utils.profile_shard import SLABS, config5_windows
 from mpm_tpu_torch.utils.timing import cuda_time_ms, fenced_windows
 
@@ -178,18 +179,18 @@ def check_f_emit(state, grid, config, fluid, rs, label: str) -> float:
 def blur_fsizes(depth, cam):
     """Kernel BL's filter size of each pixel in its X and Y pass at radius
     100 (0 where the pixel passes through)."""
-    pc = kb.proj_const_for(cam, 7.0)
-    bx = kb.blur_pass_plain(depth, 1, 100, 100, pc, 10.0)
-    return [torch.where((d > 0) & (d <= kb.FAR_GUARD), kb.filter_sizes(d, 100, 100, pc), 0.0)
+    pc = kb.proj_const_for(cam, BL_ARGS["blur_filter_size"])
+    r, dt = BL_ARGS["radius"], BL_ARGS["depth_threshold"]
+    bx = kb.blur_pass_plain(depth, 1, r, r, pc, dt)
+    return [torch.where((d > 0) & (d <= kb.FAR_GUARD), kb.filter_sizes(d, r, r, pc), 0.0)
             for d in (depth, bx)]
 
 
 def check_bl(depth, cam, label: str) -> float:
     """Kernel BL vs plain at radius 100: atol 2e-4 rtol 1e-5
     (tests/test_render.py:240). Prints the largest filter size that ran."""
-    kw = dict(radius=100, max_filter=100, blur_filter_size=7.0, depth_threshold=10.0)
-    got = kb.blur_depth_kernel(depth, cam, **kw)
-    want = kb.blur_depth_plain(depth, cam, **kw)
+    got = kb.blur_depth_kernel(depth, cam, **BL_ARGS)
+    want = kb.blur_depth_plain(depth, cam, **BL_ARGS)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-4)
     fmax = max(int(f.max()) for f in blur_fsizes(depth, cam))
@@ -925,16 +926,20 @@ def main() -> None:
                             roofline.g2p_migrate_work(state, cfgw))}
     timing, bounds = {}, {}
 
-    def time_pair(kname, kern, plain, shape, work):
+    def time_pair(kname, kern, plain, shape, work, device=False):
+        """CUDA events; with `device`, the kernel's device time a call too,
+        with the host's time hidden (profile_render_kernels.device_ms)."""
         p1 = cuda_time_ms(plain, iters=5)
         k1 = cuda_time_ms(kern, iters=50)
         k2 = cuda_time_ms(kern, iters=50)
         p2 = cuda_time_ms(plain, iters=5)
         timing[kname] = ((k1 + k2) / 2, (p1 + p2) / 2)
         bounds[kname] = roofline.bound_ms(*work)
-        phase("time", f"{kname} at {shape}: kernel {k1:.4f} / {k2:.4f} ms, "
+        dev_ms = f", device {device_ms(kern):.4f} ms" if device else ""
+        phase("time", f"{kname} at {shape}: kernel {k1:.4f} / {k2:.4f} ms{dev_ms}, "
               f"plain {p1:.4f} / {p2:.4f} ms; bound {bounds[kname][0]:.5f} ms by "
-              f"{bounds[kname][1]} ({work[0]} B, {work[1]} ops) [{smi}]")
+              f"{bounds[kname][1]} ({work[0]} B, {work[1]} ops"
+              f"{f', {work[2]} exponentials' if len(work) > 2 else ''}) [{smi}]")
 
     for kname, (kern, plain, work) in runs.items():
         time_pair(kname, kern, plain, f"window {cfgw.grid_res} K={cfgw.bin_capacity}", work)
@@ -957,28 +962,13 @@ def main() -> None:
               lambda: kf.g2p_migrate(state, grid, cfgw, pool.fluid, emit_splats=True,
                                      render_scals=rs),
               emit_plain, f"window {cfgw.grid_res} K=8",
-              roofline.g2p_migrate_work(state, cfgw, emit=True))
+              roofline.g2p_migrate_work(state, cfgw, emit=True), device=True)
     time_pair("extract_cells", lambda: kx.extract_cell_splats(state, view, cam360),
               lambda: kx.extract_cell_splats_plain(state, view, cam360),
               f"window {cfgw.grid_res} K=8",
               roofline.extract_cells_work(state, kx.extract_cell_splats(state, view, cam360),
-                                          kx.CELL_BG))
+                                          kx.CELL_BG), device=True)
     del grid, runs
-
-    # 10. kernel BL on real splat buffers of the pool plus a near patch at
-    # depth 1.5, full frames at 640x360 and 1920x1080
-    err_bl, fsize_max = 0.0, 0
-    bl_bufs = {}
-    for cam in (cam360, Camera(width=1920, height=1080)):
-        cells = kx.extract_cell_splats(state, view, cam)
-        depth = splat_cells(cells, cam, 1.0, 6 if cam.width < 1000 else 8).depth
-        bl_bufs[cam.width] = depth.clone()
-        depth[cam.height // 3:cam.height // 3 + 24, cam.width // 3:cam.width // 3 + 40] = 1.5
-        e, f = check_bl(depth.contiguous(), cam, f"pool splat buffer {cam.width}x{cam.height}"
-                        " + near patch")
-        err_bl, fsize_max = max(err_bl, e), max(fsize_max, f)
-    if fsize_max < 100:
-        raise AssertionError(f"kernel BL never ran fsize 100 (largest {fsize_max})")
 
     # 11. main path: the render loop at 640x360 on the frozen settled window
     # (bench.py's with-render line): 2 substeps a frame, the last with kernel
@@ -989,8 +979,6 @@ def main() -> None:
     subs = pool.config.substeps
     frame = make_full_frame_step(cfgw, rc, subs)
     state, _ = frame(state, pool.fluid, (), view, bg)  # warm
-    bl_bufs["crop360"] = bl_bufs[cam360.width][rc.crop[0]:rc.crop[0] + rc.crop[2],
-                                      rc.crop[1]:rc.crop[1] + rc.crop[3]].contiguous()
     reset_launches()
     state, img, rtimes = frame_windows(frame, state, pool.fluid, view, bg, 40, 3)
     launches360 = kernel_launches()
@@ -1029,9 +1017,6 @@ def main() -> None:
     bg1080 = background_for_view(rc1080, view, dev)
     frame1080 = make_full_frame_step(cfgw, rc1080, subs)
     state, _ = frame1080(state, pool.fluid, (), view, bg1080)  # warm
-    bl_bufs["crop1080"] = bl_bufs[rc1080.camera.width][
-        rc1080.crop[0]:rc1080.crop[0] + rc1080.crop[2],
-        rc1080.crop[1]:rc1080.crop[1] + rc1080.crop[3]].contiguous()
     reset_launches()
     state, img1080, htimes = frame_windows(frame1080, state, pool.fluid, view, bg1080, 10, 2)
     launches1080 = kernel_launches()
@@ -1051,16 +1036,23 @@ def main() -> None:
           f"particle-steps/s with render; lost 0 ceiling 0 band certificate 0; fluid on "
           f"{share1080:.3f} of the crop; launches {launches1080} [{smi}]")
 
-    # kernel BL at the crops the two render loops blur: against its plain
-    # version, then timed beside it
-    for key, cam in (("crop360", rc.camera), ("crop1080", rc1080.camera)):
-        d = bl_bufs[key]
-        err_bl = max(err_bl, check_bl(d, cam, f"pool splat buffer, {key}")[0])
-        kw = dict(radius=100, max_filter=100, blur_filter_size=7.0, depth_threshold=10.0)
-        time_pair("blur_depth" if key == "crop360" else "blur_depth_1080",
-                  lambda: kb.blur_depth_kernel(d, cam, **kw),
-                  lambda: kb.blur_depth_plain(d, cam, **kw), f"{key} {tuple(d.shape)}",
-                  roofline.blur_work(*blur_fsizes(d, cam)))
+    # 10. kernel BL against its plain version, then timed beside it, on the
+    # pool's splat buffers after the render loops: the crops the two loops
+    # blur, and the full 640x360 and 1920x1080 frames with a near patch at
+    # depth 1.5 (fsize 100)
+    err_bl, fsize_max = 0.0, 0
+    for key, (d, cam) in blur_buffers(state, view, rc.crop, rc1080.crop).items():
+        label = f"pool splat buffer, {key}" if key.startswith("crop") else \
+            f"pool splat buffer {cam.width}x{cam.height} + near patch"
+        e, f = check_bl(d, cam, label)
+        err_bl, fsize_max = max(err_bl, e), max(fsize_max, f)
+        time_pair({"crop360": "blur_depth", "crop1080": "blur_depth_1080"}.get(
+                      key, "blur_depth_" + key),
+                  lambda: kb.blur_depth_kernel(d, cam, **BL_ARGS),
+                  lambda: kb.blur_depth_plain(d, cam, **BL_ARGS), f"{key} {tuple(d.shape)}",
+                  roofline.blur_work(*blur_fsizes(d, cam)), device=True)
+    if fsize_max < 100:
+        raise AssertionError(f"kernel BL never ran fsize 100 (largest {fsize_max})")
 
     # 13. main path: the windowed render path (`render --window auto`): the
     # air-window engine steps, render_frame_buckets draws through kernel X
@@ -1079,7 +1071,7 @@ def main() -> None:
           f"{fluid_share(wimg, frame_to_u8(bg[0]), rc.crop):.3f} of the crop; "
           f"launches {launches_win}")
     phase_sharded_render(dev, smi, state, win.config, pool, view)
-    del state, bl_bufs
+    del state
 
     # 7. main path: the 1M dam-break, no window
     dam = benchmark_dam_break(N_POOL, device=dev)

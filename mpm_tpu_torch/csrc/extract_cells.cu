@@ -5,16 +5,21 @@
 // by extract_cell_splats). The plain PyTorch version is
 // mpm_tpu_torch/render/extract_kernel.extract_cell_splats_plain.
 //
-// What bounds it on this card: device-memory reads. Each slot is read once:
-// pos 12 B, mass 4 B, and vel 6 B (bf16) or 12 B (f32) for the winning
-// slots; each cell writes 20 B. At the settled 1M pool window (about 229k
-// cells, K=8, bf16) that is about 40 MB, some 12 us at 3.35 TB/s. The
-// projection is a few dozen FLOPs per slot.
+// What bounds it on this card: device-memory reads. Each slot's mass is
+// read (4 B), the position of each slot with mass (12 B), and the velocity
+// of each cell's winner (6 B in bf16, 12 B in f32); each cell writes 20 B.
+// At the settled 1M pool window ((64, 48, 64), K=8, bf16, 62% of the slots
+// occupied) that is about 23 MB, some 7 us at 3.35 TB/s. The projection is
+// a few dozen FLOPs per occupied slot.
 //
-// The simple design: one thread per cell walks its K slots in slot order
-// (extract_cells.cuh). Threads of a warp hold neighbouring cells, so every
-// read of a slot row is coalesced over C. No shared memory, no atomics; the
-// result does not depend on the launch shape.
+// The design: one thread per cell (extract_cells.cuh). It loads its K masses
+// first, all in flight at once, into a bit a slot; then it walks the slots in
+// slot order, loading the position of the next occupied slot while it
+// projects the current one, and the winner's velocity once at the end. An
+// empty slot costs its mass alone. Loading the positions of 8 slots at once
+// instead ran slower (PERF.md). Threads of a warp hold neighbouring cells,
+// so every read of a slot row is coalesced over C. No shared memory, no
+// atomics; the result does not depend on the launch shape.
 
 #include "extract_cells.cuh"
 

@@ -8,6 +8,8 @@
 // is beyond the near plane. The winner is the FIRST slot in slot order whose
 // masked depth equals the cell's minimum, as mpm_tpu/render/extract_kernel.py
 // _extract_kernel selects it; depth CELL_BG marks a cell with no valid slot.
+// A cell reads each slot's mass, the position of a slot with mass > 0 and
+// the velocity of its winner: what utils/roofline.extract_cells_work counts.
 //
 // The projection and |vel| round operation for operation as the plain
 // PyTorch version (mpm_tpu_torch/ops/cuda/extract_cells.py) does. Both
@@ -38,46 +40,70 @@ __device__ __forceinline__ void extract_cell(const float* __restrict__ pos,
   const float* s = rs.s;
   float dmin = __int_as_float(0x7f800000);  // +inf
   int win = -1;
-  float sel_px = 0.f, sel_py = 0.f, sel_v = 0.f;
+  float sel_px = 0.f, sel_py = 0.f;
   int count = 0;
-  for (int k = 0; k < K; ++k) {
-    const size_t i = (size_t)k * C + c;
-    const float p0 = pos[i], p1 = pos[KC + i], p2 = pos[2 * KC + i];
-    float vp[3];
-    for (int r = 0; r < 3; ++r) {
-      float acc = s[4 * r] * p0;
-      acc = acc + s[4 * r + 1] * p1;
-      acc = acc + s[4 * r + 2] * p2;
-      vp[r] = acc + s[4 * r + 3];
+  for (int k0 = 0; k0 < K; k0 += 32) {  // slots in slot order, 32 at a time
+    const int kn = min(K - k0, 32);
+    // the masses first, all loads in flight: a bit a slot with mass > 0
+    unsigned occ = 0;
+#pragma unroll 8
+    for (int j = 0; j < kn; ++j) occ |= (unsigned)(mass[(size_t)(k0 + j) * C + c] > 0.f) << j;
+    // the positions of those slots only, the next one loading while one is used
+    unsigned rest = occ;
+    float q0 = 0.f, q1 = 0.f, q2 = 0.f;
+    if (rest) {
+      const size_t i = (size_t)(k0 + __ffs(rest) - 1) * C + c;
+      q0 = pos[i], q1 = pos[KC + i], q2 = pos[2 * KC + i];
     }
-    const float depth = -vp[2];
-    const bool valid = mass[i] > 0.f && depth > s[15];
-    count += valid;
-    const float dm = valid ? depth : CELL_BG;
-    // first valid slot among those at the minimum (an invalid slot's
-    // CELL_BG may reach the minimum first; a valid one equal to it still wins)
-    const bool take = dm < dmin || (dm == dmin && valid && win < 0);
-    if (dm < dmin) dmin = dm;
-    if (take) {
-      win = valid ? k : -1;
-      if (valid) {
-        const float safe = depth > 1e-6f ? depth : 1e-6f;
-        sel_px = s[13] + (s[12] * vp[0]) / safe;
-        sel_py = s[14] - (s[12] * vp[1]) / safe;
-        const float v0 = load_vc(vel, i), v1 = load_vc(vel, KC + i),
-                    v2 = load_vc(vel, 2 * KC + i);
-        float m2 = v0 * v0;
-        m2 = m2 + v1 * v1;
-        m2 = m2 + v2 * v2;
-        sel_v = sqrtf(m2);
+    for (int j = 0; j < kn; ++j) {
+      bool valid = false;
+      float depth = 0.f, vp[3] = {0.f, 0.f, 0.f};
+      if ((occ >> j) & 1u) {
+        const float p0 = q0, p1 = q1, p2 = q2;
+        rest &= rest - 1;
+        if (rest) {
+          const size_t i = (size_t)(k0 + __ffs(rest) - 1) * C + c;
+          q0 = pos[i], q1 = pos[KC + i], q2 = pos[2 * KC + i];
+        }
+        for (int r = 0; r < 3; ++r) {
+          float acc = s[4 * r] * p0;
+          acc = acc + s[4 * r + 1] * p1;
+          acc = acc + s[4 * r + 2] * p2;
+          vp[r] = acc + s[4 * r + 3];
+        }
+        depth = -vp[2];
+        valid = depth > s[15];
+      }
+      count += valid;
+      const float dm = valid ? depth : CELL_BG;
+      // first valid slot among those at the minimum (an invalid slot's
+      // CELL_BG may reach the minimum first; a valid one equal to it still wins)
+      const bool take = dm < dmin || (dm == dmin && valid && win < 0);
+      if (dm < dmin) dmin = dm;
+      if (take) {
+        win = valid ? k0 + j : -1;
+        if (valid) {
+          const float safe = depth > 1e-6f ? depth : 1e-6f;
+          sel_px = s[13] + (s[12] * vp[0]) / safe;
+          sel_py = s[14] - (s[12] * vp[1]) / safe;
+        }
       }
     }
   }
   const bool found = win >= 0;
+  float sel_v = 0.f;
+  if (found) {  // |vel| of the winner alone
+    const size_t i = (size_t)win * C + c;
+    const float v0 = load_vc(vel, i), v1 = load_vc(vel, KC + i), v2 = load_vc(vel, 2 * KC + i);
+    float m2 = v0 * v0;
+    m2 = m2 + v1 * v1;
+    m2 = m2 + v2 * v2;
+    sel_v = sqrtf(m2);
+  }
   out[c] = found ? sel_px : 0.f;
   out[(size_t)C + c] = found ? sel_py : 0.f;
   out[2 * (size_t)C + c] = found ? dmin : CELL_BG;
-  out[3 * (size_t)C + c] = found ? sel_v : 0.f;
+  out[3 * (size_t)C + c] = sel_v;
   out[4 * (size_t)C + c] = (float)count;
 }
 

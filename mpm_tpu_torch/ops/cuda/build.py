@@ -11,6 +11,7 @@ output; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -108,9 +109,22 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on `device`, as its raw handle (without the
+    Stream object that torch.cuda.current_stream builds at each call)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(idx))
+
+
+def on_device(device):
+    """A context that makes `device` current for a launch: none when it is
+    current already."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_rc(name: str, rc: int) -> None:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import FluidParams
+from .fmath import pow_rn
 
 
 def pow_static(x: torch.Tensor, p: float) -> torch.Tensor:
@@ -28,7 +29,7 @@ def pow_static(x: torch.Tensor, p: float) -> torch.Tensor:
             if n:
                 base = base * base
         return result
-    return x**p
+    return pow_rn(x, p)
 
 
 def eos_pressure(density: torch.Tensor, fp: FluidParams,
@@ -39,6 +40,6 @@ def eos_pressure(density: torch.Tensor, fp: FluidParams,
     # divided by a CPU scalar as a multiply by the reciprocal, while the
     # kernels (and the JAX package) divide
     ratio = density / fp.rest_density.to(density.device)
-    rp = pow_static(ratio, power_static) if power_static else ratio**fp.eos_power
+    rp = pow_static(ratio, power_static) if power_static else pow_rn(ratio, fp.eos_power)
     return torch.maximum(fp.pressure_floor.to(ratio.device),
                          fp.eos_stiffness * (rp - 1.0))

@@ -102,14 +102,40 @@ def _lib() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.blur_depth.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, cf, vp]
     lib.blur_depth.restype = ci
+    for fn, args in ((lib.blur_depth_smem, [ci, ci]), (lib.blur_depth_max_smem, []),
+                     (lib.blur_depth_scratch_words, [ci, ci])):
+        fn.argtypes, fn.restype = args, ci
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _words(h: int, w: int) -> int:
+    """4-byte words of a call's one allocation: the result, then the
+    kernel's scratch (the X pass and each row segment's least depth)."""
+    return h * w + _lib().blur_depth_scratch_words(h, w)
+
+
+@functools.lru_cache(maxsize=64)
+def _host_args(cam: Camera, radius: int, max_filter: int, blur_filter_size: float,
+               depth_threshold: float) -> tuple:
+    """The kernel's scalar arguments after (h, w), built once per camera and
+    parameters: radius, max_filter, proj_const, 1 / (2 depth_threshold^2)."""
+    lib = _lib()
+    if lib.blur_depth_smem(radius, max_filter) > lib.blur_depth_max_smem():
+        raise ValueError(f"kernel BL stages min(radius, max_filter) = "
+                         f"{min(radius, max_filter)} taps a side, more than fits in "
+                         "shared memory (at most 904)")
+    return (radius, max_filter, ctypes.c_float(proj_const_for(cam, blur_filter_size)),
+            ctypes.c_float(_inv_2sr2(depth_threshold)))
 
 
 def blur_depth_kernel(depth: torch.Tensor, cam: Camera, radius: int, max_filter: int,
                       blur_filter_size: float, depth_threshold: float) -> torch.Tensor:
     """Both passes of the depth-adaptive bilateral blur of an [H, W] float32
     linear-depth buffer: the plain version on the CPU, kernel BL on CUDA.
-    The arguments are those of the JAX package's blur_depth_pallas."""
+    The arguments are those of the JAX package's blur_depth_pallas. On
+    CUDA one allocation holds the result, returned as a view of it, and the
+    kernel's scratch."""
     global launches
     dev = depth.device
     if dev.type == "cpu":
@@ -119,14 +145,14 @@ def blur_depth_kernel(depth: torch.Tensor, cam: Camera, radius: int, max_filter:
         raise ValueError(f"kernel BL runs on CUDA devices, not {dev}")
     if depth.dim() != 2 or depth.dtype != torch.float32 or not depth.is_contiguous():
         raise ValueError("depth must be a contiguous float32 [H, W] tensor")
+    args = _host_args(cam, int(radius), int(max_filter), float(blur_filter_size),
+                      float(depth_threshold))
     h, w = depth.shape
-    tmp, out = torch.empty_like(depth), torch.empty_like(depth)
-    lib = _lib()
-    P = build.ptr
-    with torch.cuda.device(dev):
-        rc = lib.blur_depth(P(depth), P(tmp), P(out), h, w, int(radius), int(max_filter),
-                            proj_const_for(cam, blur_filter_size),
-                            _inv_2sr2(depth_threshold), build.stream_of(dev))
+    buf = torch.empty(_words(h, w), dtype=torch.float32, device=dev)
+    out = buf[:h * w].view(h, w)
+    with build.on_device(dev):
+        rc = _lib().blur_depth(depth.data_ptr(), buf.data_ptr() + 4 * h * w, buf.data_ptr(),
+                               h, w, *args, build.stream_of(dev))
     build.check_rc("blur_depth", rc)
     launches += 1
     return out

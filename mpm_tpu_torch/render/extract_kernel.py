@@ -73,14 +73,13 @@ def extract_cell_splats(state, view, cam) -> torch.Tensor:
         raise ValueError(f"kernel X runs on CUDA devices, not {dev}")
     _check_bucket_arrays(state.pos, state.vel, state.mass)
     k, c = state.mass.shape
+    scals = render_scals_for(view, cam)
     out = torch.empty((5, c), dtype=torch.float32, device=dev)
-    lib = _lib()
-    P = build.ptr
-    with torch.cuda.device(dev):
-        rc = lib.extract_cells(P(state.pos), P(state.vel), P(state.mass),
-                               scals_arg(render_scals_for(view, cam)), k, c,
-                               int(state.vel.dtype == torch.bfloat16), P(out),
-                               build.stream_of(dev))
+    with build.on_device(dev):
+        rc = _lib().extract_cells(state.pos.data_ptr(), state.vel.data_ptr(),
+                                  state.mass.data_ptr(), scals_arg(scals), k, c,
+                                  int(state.vel.dtype == torch.bfloat16), out.data_ptr(),
+                                  build.stream_of(dev))
     build.check_rc("extract_cells", rc)
     launches += 1
     return out

@@ -20,6 +20,7 @@ import torch
 
 from ..ops.cuda import step as cuda_step
 from ..ops.cuda.extract_cells import render_scals_for
+from ..ops.fmath import pow_rn
 from .background import BackgroundScene, make_cubemap_sampler, render_background
 from .camera import Camera, as_view, crop_for_aabb, look_at
 from .extract_kernel import extract_cell_splats
@@ -181,7 +182,7 @@ def domain_crop(rc: RenderConfig, config, view) -> RenderConfig:
 def frame_to_u8(img: torch.Tensor) -> torch.Tensor:
     """Tonemap on the device (gamma 2.2, as image.to_uint8), so frames
     leave the card as u8."""
-    g = torch.clamp(img, 0.0, 1.0) ** float(np.float32(1.0 / 2.2))
+    g = pow_rn(torch.clamp(img, 0.0, 1.0), float(np.float32(1.0 / 2.2)))
     return (g * 255.0 + 0.5).to(torch.uint8)
 
 

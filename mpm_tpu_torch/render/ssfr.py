@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.fmath import sqrt_rn
+from ..ops.fmath import pow_rn, sqrt_rn
 
 from .background import dot3
 from .blur_kernel import FAR_GUARD, blur_depth_kernel
@@ -115,10 +115,10 @@ def shade(fluid_depth: torch.Tensor, bg_color: torch.Tensor, bg_depth: torch.Ten
 
     hvec = light_v - ray_dir
     hvec = hvec / torch.clamp_min(norm3(hvec), 1e-9)[..., None]
-    spec = torch.clamp_min(dot3(hvec, normal), 0.0) ** params.specular_power
+    spec = pow_rn(torch.clamp_min(dot3(hvec, normal), 0.0), params.specular_power)
 
     cos_t = dot3(normal, -ray_dir)
-    fresnel = torch.clamp(F0 + (1.0 - F0) * torch.clamp_min(1.0 - cos_t, 0.0) ** 5.0,
+    fresnel = torch.clamp(F0 + (1.0 - F0) * pow_rn(torch.clamp_min(1.0 - cos_t, 0.0), 5.0),
                           0.0, params.fresnel_clamp)
 
     # sky reflection: reflect in view space, rotate to world for sampling

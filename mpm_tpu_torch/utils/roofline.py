@@ -1,8 +1,10 @@
 """The least time an NVIDIA H100 could take for each kernel's work: the
-larger of the bytes the function must move over the card's memory rate and
+largest of the bytes the function must move over the card's memory rate,
 the float32 operations it must do over the card's rate outside the tensor
 cores (NVIDIA's data sheet, SXM part: 3.35 TB/s, 67 TFLOP/s; both assume
-the full 700 W power limit).
+the full 700 W power limit) and, where it takes exponentials, those over
+the special-function units' rate: 132 SMs x 16 a clock x 1.98 GHz (the
+SXM part's largest SM clock) = 4.18e12 a second.
 
 Both count what the function needs on the inputs of the call that is
 timed, not what the kernel does. Bytes: the mass of every slot (it says
@@ -21,12 +23,15 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """(least milliseconds, "bytes" or "operations": which bounds it)."""
+def bound_ms(nbytes: float, flops: float, sfu_ops: float = 0) -> tuple[float, str]:
+    """(least milliseconds, "bytes" or "operations": which bounds it); the
+    operations' time is the larger of the float32 operations' and the
+    special-function operations' (`sfu_ops`, counted among `flops` too)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS_PER_S, sfu_ops / SFU_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -141,17 +146,19 @@ def extract_cells_work(state, splats: torch.Tensor, live_value: float) -> tuple[
     return nbytes, n * SPLAT_OPS
 
 
-def blur_work(fsize_x: torch.Tensor, fsize_y: torch.Tensor) -> tuple[int, int]:
-    """(bytes, operations) of kernel BL on an [H, W] depth buffer, from the
-    filter size of each live pixel in the X pass and the Y pass (0 where
-    the pixel passes through): the buffer in and out once; a live pixel's
-    filter size costs 10, each of its 2 fsize taps 9 and the quotient 1."""
+def blur_work(fsize_x: torch.Tensor, fsize_y: torch.Tensor) -> tuple[int, int, int]:
+    """(bytes, operations, exponentials) of kernel BL on an [H, W] depth
+    buffer, from the filter size of each live pixel in the X pass and the Y
+    pass (0 where the pixel passes through): the buffer in and out once; a
+    live pixel's filter size costs 10, each of its 2 fsize taps 9 (one of
+    them its exponential) and the quotient 1."""
     nbytes = 2 * 4 * fsize_x.numel()
-    ops = 0
+    ops = exps = 0
     for f in (fsize_x, fsize_y):
-        live = int((f > 0).sum())
-        ops += 11 * live + 18 * int(f.sum())
-    return nbytes, ops
+        live, taps = int((f > 0).sum()), 2 * int(f.sum())
+        ops += 11 * live + 9 * taps
+        exps += taps
+    return nbytes, ops, exps
 
 
 def sim2d_work(state, config, n_inter: int = 0) -> tuple[int, int]:

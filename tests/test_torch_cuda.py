@@ -446,6 +446,125 @@ def test_kernel_bl_matches_plain(dev, shape):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-4)
 
 
+def _bl_case(case):
+    """(depth [H, W], camera) of a kernel-BL stress case: a noisy fluid
+    layer at depth 30 with holes, and patches at depth 0.25, whose filter
+    size is the cap of 100 at these heights."""
+    from mpm_tpu_torch.render import Camera
+    from mpm_tpu_torch.render.splat import BG_DEPTH
+
+    shape = {"ragged": (97, 203), "near_edges": (150, 230), "background": (80, 96),
+             "one_wide": (150, 1)}[case]
+    h, w = shape
+    rng = np.random.default_rng(11)
+    depth = 30.0 + rng.uniform(-2, 2, shape).astype(np.float32)
+    depth[rng.uniform(size=shape) < 0.2] = BG_DEPTH
+    if case == "ragged":
+        depth[40:46, 150:203] = 0.25  # to the right edge, across a tile's columns
+    elif case == "near_edges":
+        depth[28:37, 28:37] = 0.25  # around a tile's corner (32, 32)
+        depth[0:4, 0:6] = 0.25  # the top and left edges
+        depth[h - 4:, w - 6:] = 0.25  # the bottom and right edges
+        depth[60:100, 100:104] = 0.25  # a column through a tile's bottom rows
+    elif case == "background":
+        depth[:] = BG_DEPTH
+    else:
+        depth[0:3] = 0.25
+        depth[70:75] = 0.25
+    return depth, Camera(width=max(w, 64), height=h)
+
+
+@pytest.mark.parametrize("case", ["ragged", "near_edges", "background", "one_wide"])
+def test_kernel_bl_stress_matches_plain(dev, case):
+    """Kernel BL bit for bit against its plain version: a shape that is no
+    multiple of the 32 x 32 tile, fsize-100 patches at a tile's corner and
+    at the image's edges (the Y halo crosses tiles and the border), an
+    all-background buffer and a buffer one pixel wide."""
+    from mpm_tpu_torch.render import blur_kernel as kb
+
+    depth, cam = _bl_case(case)
+    d = torch.from_numpy(depth).to(dev)
+    kw = dict(radius=100, max_filter=100, blur_filter_size=7.0, depth_threshold=10.0)
+    pc = kb.proj_const_for(cam, 7.0)
+    if case != "background":
+        assert int(kb.filter_sizes(d, 100, 100, pc).max()) == 100
+    n0 = kb.launches
+    got = kb.blur_depth_kernel(d, cam, **kw)
+    torch.cuda.synchronize()
+    assert kb.launches == n0 + 1
+    want = kb.blur_depth_plain(d, cam, **kw)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    if case == "background":
+        assert torch.equal(got, d)
+
+
+def _x_state(dev, case, storage="float32"):
+    """Bucket arrays (pos, vel, mass) of a kernel-X stress case, and the
+    view and camera: the cells of a 16^3 grid in view, K=8 (K=32 for
+    "full"), every slot of a cell at its own seeded place."""
+    import types
+
+    view, cam = _view_cam()
+    k = 32 if case == "full" else 8
+    res = 16
+    c = res ** 3
+    rng = np.random.default_rng(5)
+    cells = np.stack(np.meshgrid(*(np.arange(res),) * 3, indexing="ij"), 0).reshape(3, 1, c)
+    pos = (cells + rng.uniform(0.0, 1.0, (3, k, c))).astype(np.float32)
+    vel = rng.normal(0.0, 1.0, (3, k, c)).astype(np.float32)
+    mass = (rng.uniform(size=(k, c)) < 0.5).astype(np.float32)
+    if case == "empty":
+        mass[:] = 0.0
+    elif case == "full":
+        mass[:] = 1.0
+    elif case == "near_plane":  # slots at the eye, around the near plane and behind it
+        eye = np.linalg.inv(np.asarray(view, np.float64))[:3, 3]
+        fwd = -np.asarray(view, np.float64)[2, :3]
+        offs = rng.uniform(-0.1, 0.1, (k, c))
+        pos = (eye[:, None, None] + fwd[:, None, None] * offs).astype(np.float32)
+        mass[:] = 1.0
+    elif case == "ties":  # slots 2..5 of each cell at one place, slot 3 the first with mass
+        pos[:, 2:6] = pos[:, 2:3]
+        mass[2] = 0.0
+        mass[3:6] = 1.0
+    st = types.SimpleNamespace(
+        pos=torch.from_numpy(pos).to(dev),
+        vel=torch.from_numpy(vel).to(dev, getattr(torch, storage)),
+        mass=torch.from_numpy(mass).to(dev))
+    return st, view, cam
+
+
+@pytest.mark.parametrize("case, storage", [("empty", "float32"), ("full", "float32"),
+                                           ("full", "bfloat16"), ("near_plane", "float32"),
+                                           ("ties", "float32")])
+def test_kernel_x_stress_matches_plain(dev, case, storage):
+    """Kernel X bit for bit against its plain version: every slot empty,
+    K=32 with every slot filled, slots with mass at and behind the near
+    plane, and equal depths in a cell, where the first slot must win."""
+    from mpm_tpu_torch.render import extract_kernel as kx
+
+    st, view, cam = _x_state(dev, case, storage)
+    n0 = kx.launches
+    got = kx.extract_cell_splats(st, view, cam)
+    torch.cuda.synchronize()
+    assert kx.launches == n0 + 1
+    want = kx.extract_cell_splats_plain(st, view, cam)
+    for r in range(5):
+        assert torch.equal(got[r], want[r]), r
+    live = want[2] < kx.CELL_BG
+    if case == "empty":
+        assert not bool(live.any())
+    elif case == "near_plane":
+        assert 0 < int(live.sum()) and int((want[4] < 8).sum()) > 0
+    elif case == "ties":  # where the tied slots are the nearest, slot 3's |vel|
+        sc = kx.render_scals_for(view, cam).tolist()
+        p = st.pos[:, 3]
+        won = live & (want[2] == -(sc[8] * p[0] + sc[9] * p[1] + sc[10] * p[2] + sc[11]))
+        assert int(won.sum()) > 0
+        v3 = st.vel[:, 3].float().pow(2).sum(0).sqrt()
+        torch.testing.assert_close(want[3][won], v3[won], rtol=1e-6, atol=0)
+
+
 @pytest.mark.parametrize("storage, fixed", [("float32", False), ("bfloat16", False),
                                             ("float32", True)])
 def test_shard_kernels_match_plain(dev, storage, fixed):

@@ -168,3 +168,44 @@ def test_blur_radius_100_matches_pallas():
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-5)
     assert float(np.abs(got - depth).max()) > 1.0  # the blur did something
     assert BG_DEPTH == JBG_DEPTH and kb.BG_DEPTH == BG_DEPTH
+
+
+def test_render_scals_built_once_per_view():
+    """The 16 render scalars of a view tensor and camera are built once: the
+    same tensor comes back while the view is unchanged (no copy from a card
+    view a call), new values after the view changes in place or for another
+    camera; the C entry points take them as a host pointer."""
+    from mpm_tpu_torch.ops.cuda.extract_cells import render_scals_for, scals_arg
+
+    nview, jview, cam, jcam = _views()
+    view = torch.from_numpy(nview.copy())
+    first = render_scals_for(view, cam)
+    assert render_scals_for(view, cam) is first
+    np.testing.assert_array_equal(first.numpy(), np.asarray(jfused.render_scals_for(jview, jcam)))
+    other = render_scals_for(view, dataclasses.replace(cam, width=2 * cam.width))
+    assert other is not first and float(other[13]) == float(cam.width)
+    view[0, 3] += 1.0
+    moved = render_scals_for(view, cam)
+    assert moved is not first and float(moved[3]) == float(first[3]) + 1.0
+    assert render_scals_for(view.numpy(), cam).tolist() == moved.tolist()
+    assert scals_arg(moved).value == moved.data_ptr()
+    with pytest.raises(ValueError, match="16 contiguous float32"):
+        scals_arg(moved[:8])
+
+
+def test_blur_work_counts_exponentials():
+    """Kernel BL's bound counts each tap's exponential once more over the
+    special-function units' rate (132 SMs x 16 a clock x 1.98 GHz), which
+    bounds it where the taps are many."""
+    from mpm_tpu_torch.utils import roofline
+
+    fx = torch.tensor([[0.0, 100.0], [5.0, 0.0]])
+    fy = torch.tensor([[0.0, 100.0], [3.0, 0.0]])
+    nbytes, ops, exps = roofline.blur_work(fx, fy)
+    assert nbytes == 2 * 4 * 4
+    assert exps == 2 * (105 + 103)
+    assert ops == 11 * 4 + 9 * exps
+    ms, by = roofline.bound_ms(nbytes, ops, exps)
+    assert by == "operations"
+    assert ms == pytest.approx(exps / (132 * 16 * 1.98e9) * 1e3)
+    assert ms > ops / 67e12 * 1e3

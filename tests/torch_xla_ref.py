@@ -42,9 +42,10 @@ FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "
 # "full": float32 storage, with every slot of the grid's interior cells
 # occupied (torch_shard_cases.full_state), and the benchmark pool's static
 # EOS exponent 7 (multiplies in both engines): at the density of full cells
-# the pressure leaves its floor, where torch's CPU `x ** 7.0` and XLA's
-# differ in the last bit on some inputs, a fault of the port's CPU numerics
-# (ROADMAP §3), not of the bucket passes
+# the pressure leaves its floor, where XLA's CPU `pow` is not correctly
+# rounded (1 ulp on some 700 of 2^20 values; the port's `fmath.pow_rn` is)
+# and 978 of the 98,304 positions differ after 3 substeps with a run-time
+# exponent: XLA's numerics, not the bucket passes
 STORAGE = {"f32": {}, "bf16": {"storage_dtype": "bfloat16"}, "fixed": {"fixed_point": True},
            "full": {"eos_power_static": 7.0}}
 SCENE = dict(grid_res=16, box=8.0, spacing=0.8)
