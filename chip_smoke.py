@@ -11,16 +11,20 @@ and F in fixed-point mode too; the shard kernels on every slab of 4),
 replays the 3D and 2D golden trajectories through the kernels, runs the
 sharded demos on 4 slabs of the card, drives the main paths (the 1M
 benchmark pool under the air-window engine; its render loop at 640x360
-and at 1080p on the frozen window, the windowed render path and the
-sharded 640x360 frame on 4 slabs; the 1M dam-break; the 100k 2D benchmark
-and its frame; fluid_3d through the per-pass kernels under
-MPM_PALLAS_OLD=1; the fixed-point scene S4; config 5, 16M particles on
-256^3 under the air window on 4 slabs, beside the same window unsharded),
-holds the redesigned migration and P2G passes against their plain versions
-bit for bit under stress (a config-5 slab as it is, with every slot filled,
-and under a random grid velocity, and the card tests' stress cases), runs
-the CLI (`--shards 1` too), and times each kernel beside its plain version
-and its roofline bound. Every main path runs with the launch counts set to 0 just before it
+and at 1080p on the frozen window, the windowed render path, the
+velocity, lit-sphere and depth modes and the thickness pass at 640x360
+(each frame equal to its chain with the kernels' plain versions) and
+1080p, the particle-array renderer, a PNG cubemap, and the sharded
+640x360 frames on 4 slabs; the 1M dam-break; the 100k 2D benchmark and
+its frame; fluid_3d through the per-pass kernels under MPM_PALLAS_OLD=1;
+the fixed-point scene S4; config 5, 16M particles on 256^3 under the air
+window on 4 slabs, beside the same window unsharded, and its sharded
+frames with the thickness pass), holds the redesigned migration and P2G
+passes against their plain versions bit for bit under stress (a config-5
+slab as it is, with every slot filled, and under a random grid velocity,
+and the card tests' stress cases), runs the CLI (`--shards 1` and the new
+render flags too), and times each kernel beside its plain version and its
+roofline bound. Every main path runs with the launch counts set to 0 just before it
 and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
@@ -28,6 +32,7 @@ last is a JSON summary of the kernels; the last line is {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -40,7 +45,7 @@ import time
 import numpy as np
 import torch
 
-from mpm_tpu_torch.__main__ import kernel_launches, nvidia_smi_power
+from mpm_tpu_torch.__main__ import kernel_launches, live_particles, nvidia_smi_power
 from mpm_tpu_torch.core.state import Grid
 from mpm_tpu_torch.models.scenes import (benchmark_dam_break, benchmark_scene,
                                          benchmark_scene_2d, dam_break_2d, fluid_3d,
@@ -52,17 +57,19 @@ from mpm_tpu_torch.ops.cuda import migrate_planes as ke
 from mpm_tpu_torch.ops.cuda import p2g_shard as ks
 from mpm_tpu_torch.ops.cuda import p2g_update as kp
 from mpm_tpu_torch.ops.cuda import planes as kpl
+from mpm_tpu_torch.ops.cuda import step as cuda_step
 from mpm_tpu_torch.ops.cuda import substep2d as k2d
 from mpm_tpu_torch.ops.grid import update_grid
 from mpm_tpu_torch.ops.interact import Interaction
 from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.parallel import domain
 from mpm_tpu_torch.parallel.render import demo_sharded_render, make_sharded_frame_step
-from mpm_tpu_torch.render import (Camera, background_for_view, bucket_frame_2d, default_view,
-                                  frame_to_u8, make_full_frame_step, render_2d,
-                                  render_frame_buckets, write_png)
+from mpm_tpu_torch.render import (Camera, RenderConfig, background_for_view, bucket_frame_2d,
+                                  default_view, frame_to_u8, load_cubemap, make_full_frame_step,
+                                  render_2d, render_frame, render_frame_buckets, write_png)
 from mpm_tpu_torch.render import blur_kernel as kb
 from mpm_tpu_torch.render import extract_kernel as kx
+from mpm_tpu_torch.render import ssfr as rssfr
 from mpm_tpu_torch.render.image import read_png_rgb
 from mpm_tpu_torch.render.splat import surface_band_uncovered
 from mpm_tpu_torch.utils import roofline
@@ -629,7 +636,8 @@ def run_config5(dev, smi: str, **kw):
     equal the unsharded one bit for bit, with the same wy and counters.
     Then fenced windows of 100 substeps in turns (unsharded, sharded x3,
     unsharded x2), the launch counts read around the sharded ones. Returns
-    (launches, the gathered state, its config and the fluid)."""
+    (launches, the gathered state, its config, the scene's config and the
+    fluid)."""
     sc, win_u, win_s = config5_windows(dev, **kw)
     n = sc.state.num_particles
     su, ss = win_u.init(sc.state), win_s.init(sc.state)
@@ -683,7 +691,7 @@ def run_config5(dev, smi: str, **kw):
     state = domain.gather_bucket_state(ss)
     cfg = win_s.config
     del ss, su
-    return shard_launches, state, cfg, sc.fluid
+    return shard_launches, state, cfg, sc.config, sc.fluid
 
 
 STATE_FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling")
@@ -774,6 +782,260 @@ def phase_shard_times(state, config, fluid, time_pair) -> None:
     time_pair("g2p_migrate_shard", lambda: kf.g2p_migrate(p, v, cfg, fluid, slab=gate),
               lambda: kf.g2p_migrate_plain(p, v, cfg, fluid, slab=gate), shape,
               roofline.g2p_migrate_work(p, cfg))
+
+
+MODES = [("velocity_spheres", {}), ("lit_spheres", {}), ("depth_debug", {}),
+         ("default", {"thickness_pass": True})]
+
+
+def with_mode(rc, mode: str, **ssfr_kw):
+    return dataclasses.replace(rc, mode=mode, ssfr=dataclasses.replace(rc.ssfr, **ssfr_kw))
+
+
+@contextlib.contextmanager
+def plain_chain():
+    """The render chain with the plain versions of its kernels on the card:
+    the substeps through P's and F's plain versions, the emission through
+    the per-cell plain code, the blur through BL's plain version."""
+    saved = (cuda_step.substep, cuda_step.substep_emit, rssfr.blur_depth_kernel)
+
+    def substep(state, config, fp, inter=()):
+        return kf.g2p_migrate_plain(state, kp.p2g_update_plain(state, config, fp), config, fp,
+                                    inter)
+
+    def substep_emit(state, config, fp, inter, rs):
+        out = substep(state, config, fp, inter)
+        return out, kx.cell_splats_plain(out.pos, out.vel, out.mass, rs)
+
+    cuda_step.substep, cuda_step.substep_emit = substep, substep_emit
+    rssfr.blur_depth_kernel = kb.blur_depth_plain
+    try:
+        yield
+    finally:
+        cuda_step.substep, cuda_step.substep_emit, rssfr.blur_depth_kernel = saved
+
+
+def mean_du8(a, b) -> float:
+    return float((a.int() - b.int()).abs().float().mean())
+
+
+def phase_render_modes(dev, smi: str, state, cfgw, pool, view):
+    """Every render mode at 640x360 on the frozen settled window, cell
+    quality (the crop for the default chain only): velocity_spheres,
+    lit_spheres, depth_debug and default with the thickness pass. For each:
+    the kernel path's frame equals the plain chain's bit for bit and a
+    second call's, fluid on at least 1% of the frame (the thickness frame
+    also more than 0.1 mean |du8| from the constant one), then 3 windows of
+    40 frames from the same state with the launch counts read around them
+    (the state they end in is dropped, so the later phases start where this
+    one did). Returns the emission's and BL's launches over the windows."""
+    subs = pool.config.substeps
+    rc0 = recipe_360(pool.config, view)
+    bg = background_for_view(rc0, view, dev)
+    bg_u8 = frame_to_u8(bg[0])
+    _, const = make_full_frame_step(cfgw, rc0, subs)(state, pool.fluid, (), view, bg)
+    full = (0, 0, rc0.camera.height, rc0.camera.width)
+    total = {"g2p_migrate_emit": 0, "blur_depth": 0}
+    lost0 = int(state.lost)
+    for mode, kw in MODES:
+        rc = with_mode(rc0, mode, **kw)
+        frame = make_full_frame_step(cfgw, rc, subs)
+        s1, img = frame(state, pool.fluid, (), view, bg)
+        _, again = frame(state, pool.fluid, (), view, bg)
+        with plain_chain():
+            s2, plain = frame(state, pool.fluid, (), view, bg)
+        if not torch.equal(img, plain) or not torch.equal(img, again):
+            raise AssertionError(f"{mode}: the kernel path's frame differs from the plain chain's "
+                                 f"in {int((img != plain).any(dim=-1).sum())} pixels, from a "
+                                 f"second call's in {int((img != again).any(dim=-1).sum())}")
+        if not all(torch.equal(getattr(s1, f), getattr(s2, f)) for f in STATE_FIELDS):
+            raise AssertionError(f"{mode}: the kernel path's state differs from the plain chain's")
+        if mode == "depth_debug":  # the depth view draws the background white
+            share = float((img < 255).any(dim=-1).float().mean())
+        else:
+            share = fluid_share(img, bg_u8, rc.crop if mode == "default" else full)
+        if share < 0.01:
+            raise AssertionError(f"{mode}: fluid on only {share:.4f} of the frame")
+        extra = ""
+        if kw.get("thickness_pass"):
+            du8 = mean_du8(img, const)
+            if not du8 > 0.1:
+                raise AssertionError(f"the thickness frame is {du8:.4f} mean |du8| from the "
+                                     "constant-thickness frame (bar > 0.1)")
+            extra = f"; {du8:.4f} mean |du8| from the constant-thickness frame (bar > 0.1)"
+        reset_launches()
+        end, img, times = frame_windows(frame, state, pool.fluid, view, bg, 40, 3)
+        launches = kernel_launches()
+        ran = ["g2p_migrate_emit"] + (["blur_depth"] if mode in ("default", "depth_debug") else [])
+        if min(launches[k] for k in ran) <= 0:
+            raise AssertionError(f"{mode} did not launch {ran}: {launches}")
+        for k in total:
+            total[k] += launches[k]
+        if int(end.lost) != lost0 or int(end.ceiling) != 0:
+            raise AssertionError(f"{mode}: lost {int(end.lost) - lost0}, ceiling "
+                                 f"{int(end.ceiling)}")
+        phase("render360-" + mode, f"{kw or ''} the kernel path's frame equals the plain "
+              f"chain's and a second call's bit for bit; fluid on {share:.3f} of the "
+              f"{'crop' if mode == 'default' else 'frame'}{extra}; windows "
+              f"{[round(t, 4) for t in times]} s per 40 frames -> {min(times) / 40 * 1e3:.3f} "
+              f"ms/frame best, {sorted(times)[1] / 40 * 1e3:.3f} median; launches "
+              f"{ {k: launches[k] for k in ran} } [{smi}]")
+    return total
+
+
+def phase_thickness_1080(dev, smi: str, state, cfgw, pool, view):
+    """The 1080p recipe (particle quality, bands, R=8) with the thickness
+    pass: 2 windows of 10 frames, band certificate 0."""
+    subs = pool.config.substeps
+    rc = recipe_1080(pool.config, state, cfgw.grid_res, view)
+    rc = with_mode(rc, "default", thickness_pass=True)
+    bg = background_for_view(rc, view, dev)
+    frame = make_full_frame_step(cfgw, rc, subs)
+    lost0 = int(state.lost)
+    state, _ = frame(state, pool.fluid, (), view, bg)  # warm
+    reset_launches()
+    state, img, times = frame_windows(frame, state, pool.fluid, view, bg, 10, 2)
+    launches = kernel_launches()
+    unc = surface_band_uncovered(state, cfgw.grid_res, rc.surface_bands)
+    if int(state.lost) != lost0 or int(state.ceiling) != 0 or unc != 0:
+        raise AssertionError(f"1080p thickness: lost {int(state.lost) - lost0}, ceiling "
+                             f"{int(state.ceiling)}, band certificate {unc}")
+    if min(launches[k] for k in ("g2p_migrate_emit", "blur_depth")) <= 0:
+        raise AssertionError(f"1080p thickness did not launch every kernel: {launches}")
+    share = fluid_share(img, frame_to_u8(bg[0]), rc.crop)
+    if share < 0.1:
+        raise AssertionError(f"1080p thickness: fluid on only {share:.3f} of the crop")
+    phase("render1080-thickness", f"bands {rc.surface_bands}, crop {rc.crop}, windows "
+          f"{[round(t, 4) for t in times]} s per 10 frames -> {min(times) / 10 * 1e3:.3f} "
+          f"ms/frame best; lost 0 ceiling 0 band certificate 0; fluid on {share:.3f} of the "
+          f"crop [{smi}]")
+    return state
+
+
+def phase_sharded_modes(dev, smi: str, state, cfgw, pool, view) -> None:
+    """640x360 on SLABS slabs of the card: velocity_spheres equals the
+    single-device frame bit for bit (min composites); the thickness frame
+    (sum composite) is within a mean |du8| of 0.5 of it and the same bits on
+    a second call."""
+    subs = pool.config.substeps
+    rc0 = recipe_360(pool.config, view)
+    bg = background_for_view(rc0, view, dev)
+    mesh = domain.SlabMesh.on(dev, SLABS)
+    sb = domain.shard_bucket_state(state, cfgw, mesh)
+    out = []
+    for mode, kw in (("velocity_spheres", {}), ("default", {"thickness_pass": True})):
+        rc = with_mode(rc0, mode, **kw)
+        sframe = make_sharded_frame_step(cfgw, mesh, rc, subs)
+        ss, img = sframe(sb, pool.fluid, (), view, bg)
+        _, again = sframe(sb, pool.fluid, (), view, bg)
+        _, want = make_full_frame_step(cfgw, rc, subs)(state, pool.fluid, (), view, bg)
+        if int(ss.lost) != int(state.lost) or int(ss.ceiling) != 0:
+            raise AssertionError(f"sharded {mode}: particles lost or a ceiling hit")
+        if not torch.equal(img, again):
+            raise AssertionError(f"sharded {mode}: two calls differ")
+        du8 = mean_du8(img, want)
+        if mode == "velocity_spheres" and not torch.equal(img, want):
+            raise AssertionError(f"sharded velocity_spheres differs from the single-device frame "
+                                 f"in {int((img != want).any(dim=-1).sum())} pixels")
+        if not du8 < 0.5:
+            raise AssertionError(f"sharded {mode}: {du8:.4f} mean |du8| from the single-device "
+                                 "frame (bar 0.5)")
+        out.append(f"{mode}{' thickness' if kw else ''}: {du8:.5f} mean |du8| from the "
+                   f"single-device frame, {int((img != want).any(dim=-1).sum())} pixels differ")
+    phase("render360-sharded-modes", f"{SLABS} slabs; " + "; ".join(out)
+          + "; each the same bits on a second call")
+
+
+def phase_config5_render(dev, smi: str, s5, cfg5, true_cfg5, fluid5) -> None:
+    """Config 5's render clause (BASELINE.md:33): sharded 640x360 frames
+    with the thickness pass on the config-5 window (SLABS slabs): 1 warm and
+    3 timed frames, lost 0, ceiling 0."""
+    view = default_view(true_cfg5.grid_res)
+    rc = with_mode(recipe_360(true_cfg5, view), "default", thickness_pass=True)
+    bg = background_for_view(rc, view, dev)
+    mesh = domain.SlabMesh.on(dev, SLABS)
+    sframe = make_sharded_frame_step(cfg5, mesh, rc, true_cfg5.substeps)
+    ss = domain.shard_bucket_state(s5, cfg5, mesh)
+    lost0 = int(s5.lost)
+    ss, _ = sframe(ss, fluid5, (), view, bg)
+    reset_launches()
+    ss, img, times = frame_windows(sframe, ss, fluid5, view, bg, 3, 1)
+    launches = kernel_launches()
+    if int(ss.lost) != lost0 or int(ss.ceiling) != 0:
+        raise AssertionError(f"config 5 render: lost {int(ss.lost) - lost0}, ceiling "
+                             f"{int(ss.ceiling)}")
+    if min(launches[k] for k in ("p2g1_shard", "g2p_migrate_emit", "blur_depth")) <= 0:
+        raise AssertionError(f"config 5 render did not launch every kernel: {launches}")
+    crop = rc.crop or (0, 0, rc.camera.height, rc.camera.width)
+    share = fluid_share(img, frame_to_u8(bg[0]), crop)
+    if share < 0.01:
+        raise AssertionError(f"config 5 render: fluid on only {share:.4f} of {crop}")
+    phase("config5-render", f"{s5.pos.shape[1] * s5.pos.shape[2]} slots, window "
+          f"{cfg5.grid_res}, {SLABS} slabs, 640x360 with the thickness pass, {true_cfg5.substeps} "
+          f"substeps a frame: {times[0] / 3 * 1e3:.3f} ms/frame over 3 frames; lost 0 ceiling 0; "
+          f"fluid on {share:.3f} of {crop}; launches {launches} [{smi}]")
+
+
+def write_gradient_faces(d: str) -> None:
+    """Six 64x64 gradient cubemap faces `sky-1.png .. sky-6.png` in `d`."""
+    ramp = np.linspace(0, 255, 64).astype(np.uint8)
+    for i in range(1, 7):
+        face = np.stack([np.broadcast_to(ramp[:, None], (64, 64)),
+                         np.full((64, 64), 40 * i, np.uint8),
+                         np.broadcast_to(ramp[None, ::-1], (64, 64))], -1)
+        write_png(os.path.join(d, f"sky-{i}.png"), np.ascontiguousarray(face))
+
+
+def phase_particles_and_cubemap(dev, smi: str, state, cfgw, pool, view) -> None:
+    """render_frame at sphere_render_ratio 0.5 on the pool's live slots (the
+    particle-array path), one frame and its time; then six 64x64 gradient
+    faces written as PNGs, read back by load_cubemap, and the frame of the
+    cubemap against the sky's."""
+    rc = RenderConfig(camera=Camera(width=640, height=360), sphere_render_ratio=0.5)
+    bg = background_for_view(rc, view, dev)
+    pos, vmag = live_particles(state)
+    reset_launches()
+    img = frame_to_u8(render_frame(pos, vmag, view, rc, bg=bg))
+    torch.cuda.synchronize()
+    if kernel_launches()["blur_depth"] <= 0:
+        raise AssertionError("the particle-array frame did not launch kernel BL")
+    ms = cuda_time_ms(lambda: render_frame(pos, vmag, view, rc, bg=bg), iters=5)
+    share = fluid_share(img, frame_to_u8(bg[0]), (0, 0, 360, 640))
+    if share < 0.01:
+        raise AssertionError(f"particle-array frame: fluid on only {share:.4f} of the frame")
+    phase("particles", f"render_frame of {int((state.mass > 0).sum())} live slots at ratio 0.5, "
+          f"640x360: {ms:.3f} ms a frame (CUDA events, 5 calls); fluid on {share:.3f} of the "
+          f"frame [{smi}]")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cubemap_") as d:
+        write_gradient_faces(d)
+        faces = load_cubemap(d, dev)
+    rc0 = recipe_360(pool.config, view)
+    bg0 = background_for_view(rc0, view, dev)
+    _, sky = make_full_frame_step(cfgw, rc0, pool.config.substeps)(state, pool.fluid, (), view, bg0)
+    _, cube = make_full_frame_step(cfgw, rc0, pool.config.substeps, cubemap_faces=faces)(
+        state, pool.fluid, (), view, bg0)
+    du8 = mean_du8(cube, sky)
+    if tuple(faces.shape) != (6, 64, 64, 3) or not du8 > 0:
+        raise AssertionError(f"cubemap: faces {tuple(faces.shape)}, {du8} mean |du8| from the "
+                             "sky frame")
+    phase("cubemap", f"6 faces {tuple(faces.shape)} from PNG on {faces.device}; the 640x360 "
+          f"frame is {du8:.4f} mean |du8| from the sky frame")
+
+
+def run_cli(args, label: str, out: str, frames: int, want: tuple) -> None:
+    """`python -m mpm_tpu_torch render ...`: rc 0, one PNG a frame, and each
+    kernel of `want` launched."""
+    cmd = [sys.executable, "-m", "mpm_tpu_torch", "render", *args, "--frames", str(frames),
+           "--out", out]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    pngs = [f for f in os.listdir(out) if f.endswith(".png")] if os.path.isdir(out) else []
+    counts = {k: re.search(rf"\b{k}=(\d+)", res.stdout) for k in want}
+    if res.returncode != 0 or len(pngs) != frames or not all(
+            c and int(c.group(1)) > 0 for c in counts.values()):
+        raise AssertionError(f"render {' '.join(args)} failed (rc {res.returncode}, {len(pngs)} "
+                             f"PNGs):\n{res.stdout}\n{res.stderr}")
+    phase(label, " | ".join(res.stdout.strip().splitlines()[-4:]))
+
 
 
 def phase_sharded_render(dev, smi: str, state, cfgw, pool, view) -> None:
@@ -1070,7 +1332,11 @@ def main() -> None:
     phase("render-window", f"3 chunks of 10 substeps + a 640x360 frame each: fluid on "
           f"{fluid_share(wimg, frame_to_u8(bg[0]), rc.crop):.3f} of the crop; "
           f"launches {launches_win}")
+    mode_launches = phase_render_modes(dev, smi, state, win.config, pool, view)
+    state = phase_thickness_1080(dev, smi, state, win.config, pool, view)
+    phase_particles_and_cubemap(dev, smi, state, win.config, pool, view)
     phase_sharded_render(dev, smi, state, win.config, pool, view)
+    phase_sharded_modes(dev, smi, state, win.config, pool, view)
     del state
 
     # 7. main path: the 1M dam-break, no window
@@ -1091,8 +1357,9 @@ def main() -> None:
 
     err_sim2d, err_mig2d, launches2d = phase_2d(dev, smi, time_pair)
     errs_new, launches_new = phase_per_pass_fixed(dev, smi, time_pair)
-    launches_shard, s5, cfg5, fluid5 = run_config5(dev, smi)
+    launches_shard, s5, cfg5, true_cfg5, fluid5 = run_config5(dev, smi)
     phase_shard_times(s5, cfg5, fluid5, time_pair)
+    phase_config5_render(dev, smi, s5, cfg5, true_cfg5, fluid5)
     del s5
     phase_stress_tests()
 
@@ -1170,11 +1437,24 @@ def main() -> None:
             raise AssertionError(f"render --shards 1 failed (rc {res.returncode}, {len(pngs)} "
                                  f"PNGs):\n{res.stdout}\n{res.stderr}")
     phase("cli-render-shards", " | ".join(res.stdout.strip().splitlines()[-4:]))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_modes_") as tmp:
+        faces = os.path.join(tmp, "faces")
+        os.makedirs(faces)
+        write_gradient_faces(faces)
+        run_cli(["fluid_3d", "--render-mode", "velocity_spheres"], "cli-render-velocity",
+                os.path.join(tmp, "v"), 3, ("g2p_migrate_emit",))
+        run_cli(["fluid_3d", "--thickness-pass"], "cli-render-thickness",
+                os.path.join(tmp, "t"), 3, ("g2p_migrate_emit", "blur_depth"))
+        run_cli(["fluid_3d", "--sphere-render-ratio", "0.5"], "cli-render-ratio",
+                os.path.join(tmp, "r"), 2, ("p2g_update", "blur_depth"))
+        run_cli(["fluid_3d", "--cubemap", faces], "cli-render-cubemap",
+                os.path.join(tmp, "c"), 2, ("g2p_migrate_emit", "blur_depth"))
 
     # launches: each kernel's count from the main path that runs it (the
-    # pool for P and F, the 640x360 render loop for the emission and BL, the
-    # windowed render path for X)
-    launches.update({k: launches360[k] for k in ("g2p_migrate_emit", "blur_depth")})
+    # pool for P and F, the 640x360 render loops of every mode for the
+    # emission and BL, the windowed render path for X)
+    launches.update({k: launches360[k] + mode_launches[k]
+                     for k in ("g2p_migrate_emit", "blur_depth")})
     launches["extract_cells"] = launches_win["extract_cells"]
     launches.update({k: launches2d[k] for k in ("sim2d", "migrate2d")})
     launches.update(launches_new)

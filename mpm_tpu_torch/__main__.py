@@ -4,6 +4,9 @@
     MPM_PALLAS_OLD=1 python -m mpm_tpu_torch run fluid_3d
     python -m mpm_tpu_torch run fluid_3d_fixed_point
     python -m mpm_tpu_torch render fluid_3d --frames 30 --out frames
+    python -m mpm_tpu_torch render fluid_3d --thickness-pass --cubemap DIR
+    python -m mpm_tpu_torch render fluid_3d --render-mode velocity_spheres
+    python -m mpm_tpu_torch render fluid_3d --sphere-render-ratio 0.5
     python -m mpm_tpu_torch run bench2d
     python -m mpm_tpu_torch render dam_break_2d --out frames
     python -m mpm_tpu_torch run fluid_3d_cpu --device cpu --mode bucketed
@@ -69,6 +72,20 @@ def _parser() -> argparse.ArgumentParser:
     render.add_argument("--crop", default="auto", choices=["auto", "off"],
                         help="auto = the dilation, blur and shade run on the "
                         "domain's projected rectangle only (the same frame)")
+    render.add_argument("--render-mode", default="default",
+                        choices=["default", "velocity_spheres", "lit_spheres", "depth_debug",
+                                 "none", "legacy_quad"],
+                        help="legacy_quad is not ported (ROADMAP.md)")
+    render.add_argument("--sphere-render-ratio", type=float, default=1.0,
+                        help="below 1: render that share of the live particles as a "
+                        "particle array (render_frame), the reference's LOD slider")
+    render.add_argument("--thickness-pass", action="store_true",
+                        help="per-pixel material thickness feeds Beer's law and the "
+                        "refraction offset (the default keeps the reference's constant)")
+    render.add_argument("--thickness-scale", type=float, default=0.35)
+    render.add_argument("--cubemap", default=None, metavar="DIR",
+                        help="6-face PNG cubemap for the reflections (*-1..6.png or "
+                        "px/nx/py/ny/pz/nz.png)")
     sub.add_parser("info", help="print the device")
     return p
 
@@ -203,37 +220,62 @@ def cmd_run(args) -> None:
     print("kernel launches: " + " ".join(f"{k}={v}" for k, v in kernel_launches().items()))
 
 
+def live_particles(state):
+    """The live slots of a bucket state as a particle array: pos [3, K*C]
+    with dead slots pushed to -1e6 (off the frame), and |vel| in float32."""
+    from .render.camera import norm3
+
+    pos = state.pos.reshape(3, -1)
+    vel = state.vel.reshape(3, -1).float()
+    live = state.mass.reshape(-1) > 0
+    return torch.where(live, pos, -1e6), norm3(vel.T)
+
+
 def cmd_render(args) -> None:
-    """The frame loop of mpm_tpu/__main__.py cmd_render, bucket path: with
-    --window auto the air-window engine steps and render_frame_buckets
-    draws (kernel X); with --window off, quality cell and a kernel mode,
-    make_full_frame_step runs the substeps with kernel F's splat emission
-    and draws from its splats; with --shards, make_sharded_frame_step
-    composites the slabs' splats (--window off and quality cell only, as
-    mpm_tpu/__main__.py:614-636). A 2D scene takes _render_2d_loop. Frames
-    leave the device as u8, and PNG writes overlap the next frames on
-    worker threads."""
+    """The frame loop of mpm_tpu/__main__.py cmd_render: with --window auto
+    the air-window engine steps and render_frame_buckets draws (kernel X);
+    with --window off, quality cell, a kernel mode and a drawing render
+    mode, make_full_frame_step runs the substeps with kernel F's splat
+    emission and draws from its splats; with --shards,
+    make_sharded_frame_step composites the slabs' splats (--window off,
+    quality cell and a drawing render mode only, as
+    mpm_tpu/__main__.py:570-636); with --sphere-render-ratio below 1 the
+    live slots feed render_frame as a particle array. A 2D scene takes
+    _render_2d_loop. Frames leave the device as u8, and PNG writes overlap
+    the next frames on worker threads."""
     from .models.scenes import get_scene
     from .render import (Camera, RenderConfig, SSFRParams, background_for_view,
-                         default_view, domain_crop, frame_to_u8, make_full_frame_step,
-                         render_frame_buckets)
+                         default_view, domain_crop, frame_to_u8, load_cubemap,
+                         make_full_frame_step, render_frame, render_frame_buckets)
 
+    if args.render_mode == "legacy_quad":
+        raise SystemExit("--render-mode legacy_quad is still to port (ROADMAP.md, queue 1, "
+                         "item 'the dormant reference paths')")
     device = _device(args)
     scene = get_scene(args.scene, device=device)
     mesh = _mesh(args, scene, device)
+    particle_path = args.sphere_render_ratio < 1.0
     if mesh is not None and args.window == "auto":
         raise SystemExit("--shards render supports --window off only (the windowed+sharded "
                          "engine is available via `run`)")
-    if mesh is not None and args.render_quality != "cell":
+    if mesh is not None and particle_path:
+        raise SystemExit("--shards render requires the bucket render path "
+                         "(--sphere-render-ratio 1.0)")
+    if mesh is not None and (args.render_quality != "cell" or args.render_mode == "none"):
         raise SystemExit("--shards render uses the distributed cell-splat composite: "
-                         "requires --render-quality cell")
+                         "requires --render-quality cell and a drawing --render-mode")
     if scene.config.dim == 2:
         return _render_2d_loop(args, scene, device)
     n = scene.state.num_particles
     substeps = args.substeps or scene.config.substeps
     cam = Camera(width=args.width, height=args.height)
-    rc = RenderConfig(camera=cam, ssfr=SSFRParams(particle_sphere_radius=args.sphere_radius),
+    rc = RenderConfig(camera=cam, mode=args.render_mode,
+                      ssfr=SSFRParams(particle_sphere_radius=args.sphere_radius,
+                                      thickness_pass=args.thickness_pass,
+                                      thickness_scale=args.thickness_scale),
+                      sphere_render_ratio=args.sphere_render_ratio,
                       quality=args.render_quality, max_radius_px=args.max_radius_px)
+    cubemap = load_cubemap(args.cubemap, device) if args.cubemap else None
     view = default_view(scene.config.grid_res)
     if args.crop == "auto":
         rc = domain_crop(rc, scene.config, view)
@@ -243,24 +285,33 @@ def cmd_render(args) -> None:
                   f"({cw * ch / (cam.width * cam.height):.0%} of frame)")
     step, state, win = build(scene, args.mode, args.window, substeps, mesh)
     print(f"scene={scene.name} N={n} grid={scene.config.grid_res} mode={args.mode} "
-          f"window={args.window} {cam.width}x{cam.height} quality={rc.quality} "
+          f"window={args.window} {cam.width}x{cam.height} render-mode={rc.mode} "
+          f"quality={rc.quality} thickness-pass={rc.ssfr.thickness_pass} "
+          f"sphere-render-ratio={rc.sphere_render_ratio} cubemap={args.cubemap} "
           f"device={device}")
     bg = background_for_view(rc, view, device)
     full_frame = None
     if mesh is not None:
         from .parallel.render import make_sharded_frame_step
 
-        full_frame = make_sharded_frame_step(scene.config, mesh, rc, substeps, mode=args.mode)
-    elif args.mode != "bucketed" and win is None and rc.quality == "cell":
-        full_frame = make_full_frame_step(scene.config, rc, substeps)
+        full_frame = make_sharded_frame_step(scene.config, mesh, rc, substeps, mode=args.mode,
+                                             cubemap_faces=cubemap)
+    elif (args.mode != "bucketed" and win is None and rc.quality == "cell"
+          and not particle_path and rc.mode != "none"):
+        full_frame = make_full_frame_step(scene.config, rc, substeps, cubemap_faces=cubemap)
     grid_res = (win.config if win is not None else scene.config).grid_res
 
     def frame(state):
         if full_frame is not None:
             return full_frame(state, scene.fluid, (), view, bg)
         state = step(state, scene.fluid, ())
-        return state, frame_to_u8(render_frame_buckets(state, view, rc, bg=bg,
-                                                       grid_res=grid_res))
+        if particle_path:
+            pos, vmag = live_particles(state)
+            img = render_frame(pos, vmag, view, rc, cubemap_faces=cubemap, bg=bg)
+        else:
+            img = render_frame_buckets(state, view, rc, bg=bg, grid_res=grid_res,
+                                       cubemap_faces=cubemap)
+        return state, frame_to_u8(img)
 
     state = _write_frames(args, frame, state, n, substeps, device)
     _print_counters(state)

@@ -1,11 +1,13 @@
 """Procedural background scene and sky (port of
 ``mpm_tpu.render.background``): a checker floor, a few coloured boxes and
-spheres, and a gradient-and-sun sky that doubles as the reflection cubemap.
-Cubemap files (`load_cubemap`) are not ported yet."""
+spheres, and a gradient-and-sun sky that doubles as the reflection cubemap,
+unless six PNG cubemap faces are given (`load_cubemap`)."""
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
 
 import numpy as np
 import torch
@@ -13,6 +15,7 @@ import torch
 from ..ops.fmath import sqrt_rn
 
 from .camera import Camera, as_view, screen_to_view_dir
+from .image import read_png_rgb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,14 +84,58 @@ def sky_color(dirs: torch.Tensor) -> torch.Tensor:
     return col + sun * _vec([6.0, 5.5, 4.5], dirs)
 
 
-def make_cubemap_sampler(faces=None):
-    """The dirs -> rgb sampler of the reflections: the procedural sky.
-    Cubemap faces are not ported yet."""
-    if faces is not None:
-        raise NotImplementedError(
-            "cubemap files are still to port (ROADMAP.md, queue 1, item "
-            "'render: cubemap files')")
-    return sky_color
+def make_cubemap_sampler(faces: torch.Tensor | None = None):
+    """The dirs [..., 3] (world) -> rgb sampler of the reflections: the
+    procedural sky, or a cubemap faces [6, F, F, 3] in Godot's face order
+    (+x, -x, +y, -y, +z, -z), sampled at the nearest texel of the face of
+    the dominant axis."""
+    if faces is None:
+        return sky_color
+    f = faces.shape[1]
+
+    def sample(dirs: torch.Tensor) -> torch.Tensor:
+        x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+        ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
+        is_x = (ax >= ay) & (ax >= az)
+        is_y = ~is_x & (ay >= az)
+        face = torch.where(is_x, torch.where(x > 0, 0, 1),
+                           torch.where(is_y, torch.where(y > 0, 2, 3),
+                                       torch.where(z > 0, 4, 5)))
+        ma = torch.clamp_min(torch.where(is_x, ax, torch.where(is_y, ay, az)), 1e-9)
+        u = torch.where(is_x, torch.where(x > 0, -z, z),
+                        torch.where(is_y, x, torch.where(z > 0, x, -x)))
+        v = torch.where(is_x, -y, torch.where(is_y, torch.where(y > 0, z, -z), -y))
+        ui = torch.clamp(((u / ma + 1.0) * 0.5 * (f - 1)).to(torch.int64), 0, f - 1)
+        vi = torch.clamp(((v / ma + 1.0) * 0.5 * (f - 1)).to(torch.int64), 0, f - 1)
+        return faces.to(dirs.device)[face, vi, ui]
+
+    return sample
+
+
+def load_cubemap(source, device="cuda") -> torch.Tensor:
+    """Six PNG faces as the [6, F, F, 3] float32 tensor (on `device`) of
+    make_cubemap_sampler, in Godot's face order (+x, -x, +y, -y, +z, -z):
+    the headless counterpart of the reference's image-array cubemap
+    (screen_space_fluid_rendering.gd:71-83). `source` is a sequence of six
+    paths in face order, or a directory of `<stem>-1.png .. <stem>-6.png`
+    (the reference's naming) or of `{px,nx,py,ny,pz,nz}.png`."""
+    if isinstance(source, (list, tuple)):
+        paths = list(source)
+    else:
+        godot = sorted(glob.glob(os.path.join(source, "*-[1-6].png")))
+        named = [os.path.join(source, f"{n}.png") for n in ("px", "nx", "py", "ny", "pz", "nz")]
+        if len(godot) == 6:
+            paths = godot
+        elif all(os.path.exists(p) for p in named):
+            paths = named
+        else:
+            raise FileNotFoundError(f"no 6-face cubemap found in {source!r} (expected "
+                                    "*-1..6.png or px/nx/py/ny/pz/nz.png)")
+    faces = [np.asarray(read_png_rgb(p), np.float32) / 255.0 for p in paths]
+    shapes = {f.shape for f in faces}
+    if len(shapes) != 1 or faces[0].shape[0] != faces[0].shape[1]:
+        raise ValueError(f"cubemap faces must be square and equal: {shapes}")
+    return torch.from_numpy(np.stack(faces)).to(device)
 
 
 def render_background(cam: Camera, view, scene: BackgroundScene = BackgroundScene(),

@@ -149,3 +149,26 @@ def crop_for_aabb(cam: Camera, view, lo, hi, margin: int = 16,
     if cw >= cam.width and ch >= cam.height:
         return None
     return (y0, x0, ch, cw)
+
+
+def _ndc_coefs(cam: Camera, like: torch.Tensor):
+    """inv_proj[2].w = 1/near - 1/far and inv_proj[3].w = 1/far as float32
+    tensors on `like`'s device (a quotient divides by a device tensor)."""
+    a = 1.0 / cam.near - 1.0 / cam.far
+    b = 1.0 / cam.far
+    return (torch.tensor(a, dtype=torch.float32, device=like.device),
+            torch.tensor(b, dtype=torch.float32, device=like.device))
+
+
+def ndc_depth_to_linear(ndc_depth: torch.Tensor, cam: Camera) -> torch.Tensor:
+    """The reference's linearize pass (linearize_fluid_depth.glsl:32-34):
+    reverse-z NDC depth -> linear view depth, 1 / (d * a + b) with
+    a = 1/near - 1/far, b = 1/far."""
+    a, b = _ndc_coefs(cam, ndc_depth)
+    return torch.ones_like(ndc_depth) / (ndc_depth * a + b)
+
+
+def linear_depth_to_ndc(linear_depth: torch.Tensor, cam: Camera) -> torch.Tensor:
+    """The inverse of ndc_depth_to_linear: (1 / lin - b) / a."""
+    a, b = _ndc_coefs(cam, linear_depth)
+    return (torch.ones_like(linear_depth) / linear_depth - b) / a

@@ -1,14 +1,18 @@
-"""Render pipeline (port of ``mpm_tpu.render.pipeline``, the bucket-state
-path):
+"""Render pipeline (port of ``mpm_tpu.render.pipeline``):
 
     splat points (kernel F's emission, kernel X, or every slot)
     -> z-buffer + sphere dilation (render/splat.py)
     -> bilateral blur (kernel BL) -> SSFR shade -> composite
     -> u8 tonemap on the device
 
-Modes "default" (full SSFR) and "none" (background only). The velocity,
-lit-sphere, depth-debug and legacy modes and the thickness pass raise
-NotImplementedError until they are ported (ROADMAP.md, queue 1).
+Modes (screen_space_fluid_rendering.gd:5-7): "default" (full SSFR, with
+the thickness pass when SSFRParams.thickness_pass), "velocity_spheres"
+(depth-tested spheres coloured by |vel|), "lit_spheres" (lit impostor
+spheres), "depth_debug" (the blurred depth in grey, also
+SSFRParams.debug_draw_depth) and "none" (the background). The JAX
+package's "legacy_quad" raises NotImplementedError (ROADMAP.md). Bucket
+states render through render_frame_buckets or make_full_frame_step; a
+particle array (the `--sphere-render-ratio` path) through render_frame.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ from ..ops.fmath import pow_rn
 from .background import BackgroundScene, make_cubemap_sampler, render_background
 from .camera import Camera, as_view, crop_for_aabb, look_at
 from .extract_kernel import extract_cell_splats
-from .splat import extract_band_slot_splats, extract_slot_splats, splat_cells
-from .ssfr import SSFRParams, blur_depth, shade
+from .splat import (buffers_from_zbuffer, extract_band_slot_splats, extract_slot_splats,
+                    splat_cells, splat_particles, thickness_deposit)
+from .ssfr import (SSFRParams, blur_depth, depth_debug_image, lit_spheres_shade, shade,
+                   thickness_map, velocity_spheres_composite)
 
 RENDER_DEFAULT = "default"
 RENDER_VELOCITY_SPHERES = "velocity_spheres"
@@ -33,7 +39,8 @@ RENDER_LIT_SPHERES = "lit_spheres"
 RENDER_DEPTH_DEBUG = "depth_debug"
 RENDER_NONE = "none"
 RENDER_LEGACY_QUAD = "legacy_quad"
-RENDER_MODES = (RENDER_DEFAULT, RENDER_NONE)  # the modes this port renders
+RENDER_MODES = (RENDER_DEFAULT, RENDER_VELOCITY_SPHERES, RENDER_LIT_SPHERES,
+                RENDER_DEPTH_DEBUG, RENDER_NONE)  # the modes this port renders
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,12 +52,15 @@ class RenderConfig:
     `surface_bands` = (top, bottom, side) only the slots of the grid's
     shell. crop: the static fluid crop (y0, x0, ch, cw) of
     camera.crop_for_aabb, or None for the full frame; the dilation, blur
-    and shade then run on the crop only."""
+    and shade of the default chain then run on the crop only (the other
+    modes ignore it). sphere_render_ratio: the share of a particle array
+    render_frame draws."""
 
     camera: Camera = Camera()
     ssfr: SSFRParams = SSFRParams()
     mode: str = RENDER_DEFAULT
     max_radius_px: int = 6
+    sphere_render_ratio: float = 1.0
     background: BackgroundScene = BackgroundScene()
     quality: str = "cell"
     crop: tuple[int, int, int, int] | None = None
@@ -58,10 +68,12 @@ class RenderConfig:
 
 
 def check_mode(rc: RenderConfig) -> None:
-    if rc.mode not in RENDER_MODES:
+    if rc.mode == RENDER_LEGACY_QUAD:
         raise NotImplementedError(
-            f"render mode {rc.mode!r} is still to port (ROADMAP.md, queue 1, "
-            "item 'render: the velocity, lit, depth-debug and legacy modes')")
+            "render mode 'legacy_quad' is still to port (ROADMAP.md, queue 1, item "
+            "'the dormant reference paths')")
+    if rc.mode not in RENDER_MODES:
+        raise ValueError(f"unknown render mode {rc.mode!r}")
     if rc.quality not in ("cell", "particle"):
         raise ValueError(f"unknown render quality {rc.quality!r}")
 
@@ -73,18 +85,48 @@ def background_for_view(rc: RenderConfig, view, device=None):
     return render_background(rc.camera, view, rc.background, device=device)
 
 
+def _needs_velocity(rc: RenderConfig) -> bool:
+    """The default and depth chains read the depth only: the velocity key
+    and its tracking through the dilation run for the sphere modes alone."""
+    return rc.mode in (RENDER_VELOCITY_SPHERES, RENDER_LIT_SPHERES)
+
+
+def _thickness_on(rc: RenderConfig) -> bool:
+    return rc.ssfr.thickness_pass and rc.mode == RENDER_DEFAULT
+
+
 def _active_crop(rc: RenderConfig):
-    return rc.crop if rc.mode == RENDER_DEFAULT else None
+    """The fluid crop applies to the default chain only; the debug, velocity
+    and lit modes composite full-frame buffers."""
+    if rc.mode != RENDER_DEFAULT or rc.ssfr.debug_draw_depth:
+        return None
+    return rc.crop
 
 
-def _frame_from_bufs(bufs, view, rc: RenderConfig, bg_color, bg_depth,
-                     crop=None) -> torch.Tensor:
-    """The DEFAULT chain from the splat buffers on: blur, shade, and under
-    `crop` the composite of the shaded crop over the full background."""
+def _frame_from_bufs(bufs, view, rc: RenderConfig, bg_color, bg_depth, cubemap_faces=None,
+                     thickness_deposits=None, crop=None) -> torch.Tensor:
+    """The mode chain from the splat buffers on. `thickness_deposits`: the
+    raw additive buffer of splat.thickness_deposit under the thickness pass,
+    None for the constant thickness. `crop`: the crop the buffers were made
+    on; blur and shade run on it and the shaded crop is composited over the
+    full background."""
     cam = rc.camera
+    dev = bufs.depth.device
+    rot = as_view(view, dev)[:3, :3]
+    if rc.mode == RENDER_LIT_SPHERES:
+        return lit_spheres_shade(bufs, bg_color, bg_depth, rot, rc.ssfr, cam)
+    if rc.mode == RENDER_VELOCITY_SPHERES:
+        # |vel| / 10 as red, the depth-map shader's albedo (depth_map.gdshader:87)
+        red = bufs.velocity / torch.tensor(10.0, device=dev)
+        zero = torch.zeros_like(red)
+        return velocity_spheres_composite(bg_color, bg_depth, bufs.depth,
+                                          torch.stack([red, zero, zero], dim=-1))
     depth = blur_depth(bufs.depth, rc.ssfr, cam)
-    color, _live = shade(depth, bg_color, bg_depth, make_cubemap_sampler(None),
-                         as_view(view, depth.device)[:3, :3], rc.ssfr, cam, crop=crop)
+    if rc.mode == RENDER_DEPTH_DEBUG or rc.ssfr.debug_draw_depth:
+        return depth_debug_image(depth, rc.ssfr)
+    tmap = thickness_map(thickness_deposits, rc.ssfr) if thickness_deposits is not None else None
+    color, _live = shade(depth, bg_color, bg_depth, make_cubemap_sampler(cubemap_faces), rot,
+                         rc.ssfr, cam, thickness=tmap, crop=crop)
     if crop is not None:
         y0, x0, ch, cw = crop
         full = bg_color.clone()
@@ -93,18 +135,73 @@ def _frame_from_bufs(bufs, view, rc: RenderConfig, bg_color, bg_depth,
     return color
 
 
-def render_frame_cells(cells: torch.Tensor, view, rc: RenderConfig, bg=None) -> torch.Tensor:
+def render_frame(pos: torch.Tensor, vel_mag: torch.Tensor, view, rc: RenderConfig,
+                 cubemap_faces=None, bg=None) -> torch.Tensor:
+    """A particle array's frame [H, W, 3]: pos [3, N] and |vel| [N] on the
+    frame's device, every particle (or rc.sphere_render_ratio of them)
+    z-buffered by sorting, full frame. `bg`: background_for_view's pair,
+    else the background is traced here."""
+    check_mode(rc)
+    cam = rc.camera
+    bg_color, bg_depth = bg if bg is not None else background_for_view(rc, view, pos.device)
+    if rc.mode == RENDER_NONE:
+        return bg_color
+    bufs = splat_particles(pos, vel_mag, view, cam,
+                           sphere_radius=rc.ssfr.particle_sphere_radius,
+                           max_radius_px=rc.max_radius_px,
+                           sphere_render_ratio=rc.sphere_render_ratio,
+                           with_normals=rc.mode == RENDER_LIT_SPHERES)
+    return _frame_from_bufs(bufs, view, rc, bg_color, bg_depth, cubemap_faces=cubemap_faces)
+
+
+def make_renderer(rc: RenderConfig, cubemap_faces=None):
+    """(pos, vel_mag, view) -> frame: render_frame with `rc` bound."""
+    def renderer(pos, vel_mag, view):
+        return render_frame(pos, vel_mag, view, rc, cubemap_faces=cubemap_faces)
+
+    return renderer
+
+
+def render_frame_cells(cells: torch.Tensor, view, rc: RenderConfig, bg=None,
+                       cubemap_faces=None, thickness_cells=None) -> torch.Tensor:
     """The SSFR chain from splat points [5, M] on: the float frame
     [H, W, 3] on the splats' device. `bg`: the precomputed (color, depth)
-    of background_for_view, else the background is traced here."""
+    of background_for_view, else the background is traced here.
+    `thickness_cells`: the cell splats of the thickness deposit, when they
+    are not `cells` (quality "particle")."""
     check_mode(rc)
     bg_color, bg_depth = bg if bg is not None else background_for_view(rc, view, cells.device)
     if rc.mode == RENDER_NONE:
         return bg_color
     crop = _active_crop(rc)
     bufs = splat_cells(cells, rc.camera, sphere_radius=rc.ssfr.particle_sphere_radius,
-                       max_radius_px=rc.max_radius_px, crop=crop)
-    return _frame_from_bufs(bufs, view, rc, bg_color, bg_depth, crop=crop)
+                       max_radius_px=rc.max_radius_px, crop=crop,
+                       with_velocity=_needs_velocity(rc),
+                       with_normals=rc.mode == RENDER_LIT_SPHERES)
+    tdep = None
+    if _thickness_on(rc):
+        tdep = thickness_deposit(cells if thickness_cells is None else thickness_cells,
+                                 rc.camera, sphere_radius=rc.ssfr.particle_sphere_radius,
+                                 crop=crop)
+    return _frame_from_bufs(bufs, view, rc, bg_color, bg_depth, cubemap_faces=cubemap_faces,
+                            thickness_deposits=tdep, crop=crop)
+
+
+def render_frame_from_zbuffer(d: torch.Tensor, key, view, rc: RenderConfig, bg=None,
+                              cubemap_faces=None, thickness_deposits=None) -> torch.Tensor:
+    """The chain from a raw (possibly slab-composited) z-buffer on: `key`
+    the velocity key for the sphere modes (else None), `thickness_deposits`
+    the raw thickness buffer under the thickness pass (else None). Under
+    an active crop every buffer must be crop-sized."""
+    check_mode(rc)
+    bg_color, bg_depth = bg if bg is not None else background_for_view(rc, view, d.device)
+    if rc.mode == RENDER_NONE:
+        return bg_color
+    bufs = buffers_from_zbuffer(d, rc.camera, rc.ssfr.particle_sphere_radius,
+                                rc.max_radius_px, key=key,
+                                with_normals=rc.mode == RENDER_LIT_SPHERES)
+    return _frame_from_bufs(bufs, view, rc, bg_color, bg_depth, cubemap_faces=cubemap_faces,
+                            thickness_deposits=thickness_deposits, crop=_active_crop(rc))
 
 
 def _slot_splats(state, view, rc: RenderConfig, grid_res):
@@ -117,21 +214,27 @@ def _slot_splats(state, view, rc: RenderConfig, grid_res):
 
 
 def render_frame_buckets(state, view, rc: RenderConfig, bg=None,
-                         grid_res: tuple[int, ...] | None = None) -> torch.Tensor:
+                         grid_res: tuple[int, ...] | None = None,
+                         cubemap_faces=None) -> torch.Tensor:
     """A bucket state's frame [H, W, 3]: kernel X reduces each cell to its
     nearest particle (quality "cell"), or every live slot feeds the
     z-buffer (quality "particle"; with rc.surface_bands only the shell's
-    slots, which needs grid_res)."""
+    slots, which needs grid_res; the thickness pass then deposits kernel
+    X's cell splats)."""
     check_mode(rc)
     if bg is None:
         bg = background_for_view(rc, view, state.pos.device)
     if rc.mode == RENDER_NONE:
         return bg[0]
+    tcells = None
     if rc.quality == "particle":
         cells = _slot_splats(state, view, rc, grid_res)
+        if _thickness_on(rc):
+            tcells = extract_cell_splats(state, view, rc.camera)
     else:
         cells = extract_cell_splats(state, view, rc.camera)
-    return render_frame_cells(cells, view, rc, bg=bg)
+    return render_frame_cells(cells, view, rc, bg=bg, cubemap_faces=cubemap_faces,
+                              thickness_cells=tcells)
 
 
 def emitting_frame_fn(config, cam: Camera, substeps: int):
@@ -147,22 +250,24 @@ def emitting_frame_fn(config, cam: Camera, substeps: int):
     return fn
 
 
-def make_full_frame_step(config, rc: RenderConfig, substeps: int):
+def make_full_frame_step(config, rc: RenderConfig, substeps: int, cubemap_faces=None):
     """The frame step of the render loop: (state, fluid, interactions, view,
     bg) -> (state, u8 frame [H, W, 3] on the state's device). The substeps
     end with kernel F's splat emission; quality "cell" renders those splats,
-    quality "particle" the post-step state's slots (as the JAX package does
-    since its surface-band fix: the cell splats then feed only the
-    thickness pass, which waits). `bg` is background_for_view's pair, or
-    None to trace the background per frame."""
+    quality "particle" the post-step state's slots, and F's cell splats
+    then feed the thickness pass only. `bg` is background_for_view's pair,
+    or None to trace the background per frame."""
     check_mode(rc)
     step = emitting_frame_fn(config, rc.camera, substeps)
 
     def fn(state, fp, inter, view, bg):
         state, cells = step(state, fp, inter, view)
         if rc.quality == "particle":
-            cells = _slot_splats(state, view, rc, config.grid_res)
-        return state, frame_to_u8(render_frame_cells(cells, view, rc, bg=bg))
+            img = render_frame_cells(_slot_splats(state, view, rc, config.grid_res), view, rc,
+                                     bg=bg, cubemap_faces=cubemap_faces, thickness_cells=cells)
+        else:
+            img = render_frame_cells(cells, view, rc, bg=bg, cubemap_faces=cubemap_faces)
+        return state, frame_to_u8(img)
 
     return fn
 

@@ -6,7 +6,9 @@
     -> composite over the background
 
 The splat buffers already hold linear view depth. Shading uses the
-reference's constant thickness; the thickness pass waits (ROADMAP.md).
+reference's constant thickness, or with `thickness_pass` the per-pixel
+material thickness of splat.thickness_deposit (blurred by `thickness_map`).
+The debug views (depth, velocity spheres, lit spheres) composite here too.
 """
 
 from __future__ import annotations
@@ -15,19 +17,21 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.fmath import pow_rn, sqrt_rn
 
 from .background import dot3
-from .blur_kernel import FAR_GUARD, blur_depth_kernel
+from .blur_kernel import BG_DEPTH, FAR_GUARD, blur_depth_kernel
 from .camera import Camera, as_view, norm3, screen_to_view_dir, view_pos_from_depth
 
 IOR = 1.333
 ETA = 1.0 / IOR
 F0 = 0.02  # Fresnel at 0 degrees (fluid_render_fixed_depth.glsl:14)
 
-__all__ = ["FAR_GUARD", "IOR", "ETA", "F0", "SSFRParams", "blur_depth",
-           "reconstruct_normals", "shade"]
+__all__ = ["FAR_GUARD", "IOR", "ETA", "F0", "SSFRParams", "blur_depth", "composite_threshold",
+           "depth_debug_image", "gaussian_blur", "lit_spheres_shade", "reconstruct_normals",
+           "shade", "thickness_map", "velocity_spheres_composite"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +52,16 @@ class SSFRParams:
     specular_power: float = 250.0
     fresnel_clamp: float = 1.0
     light_dir: tuple[float, float, float] = (0.0, -1.0, 0.0)  # world, toward scene
+    # the depth debug view (screen_space_fluid_rendering.gd:27-29)
+    debug_draw_depth: bool = False
+    depth_divisor: float = 100.0
+    # The thickness pass the reference skipped: per-pixel material thickness
+    # (splat.thickness_deposit, blurred by a normalised Gaussian of radius
+    # thickness_blur_radius, times thickness_scale) feeds Beer's law and the
+    # refraction offset; `thickness` is then its minimum.
+    thickness_pass: bool = False
+    thickness_scale: float = 0.05
+    thickness_blur_radius: int = 6
     # Refraction-sample stride: 1 = the exact per-pixel dependent gather;
     # N > 1 gathers every Nth pixel and nearest-upsamples.
     refraction_downsample: int = 1
@@ -63,6 +77,41 @@ def blur_depth(depth: torch.Tensor, params: SSFRParams, cam: Camera) -> torch.Te
                              max_filter=params.max_filter_size,
                              blur_filter_size=params.blur_filter_size * r,
                              depth_threshold=r * params.blur_depth_scale)
+
+
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b in IEEE float32 on every device (a CUDA tensor divided by a
+    Python number is multiplied by the reciprocal instead)."""
+    return a / torch.tensor(float(np.float32(b)), dtype=a.dtype, device=a.device)
+
+
+def gaussian_blur(img: torch.Tensor, radius: int) -> torch.Tensor:
+    """Separable normalised Gaussian (sigma = radius / 2) of the additive
+    thickness deposits; normalised, so it keeps the deposited total. The
+    weights are the JAX package's float32 ones, and each pass sums
+    acc + k[i] * tap in tap order, the X pass then the Y pass."""
+    if radius <= 0:
+        return img
+    sigma = max(radius / 2.0, 1e-3)
+    xs = np.arange(-radius, radius + 1, dtype=np.float32)
+    k = np.exp(-(xs * xs) / (2.0 * sigma * sigma))
+    k = (k / k.sum()).astype(np.float32)
+    h, w = img.shape
+    for axis in (0, 1):
+        p = F.pad(img, (0, 0, radius, radius) if axis == 0 else (radius, radius, 0, 0))
+        acc = torch.zeros_like(img)
+        for i, kv in enumerate(k):
+            tap = p[i:i + h] if axis == 0 else p[:, i:i + w]
+            acc = acc + float(kv) * tap
+        img = acc
+    return img
+
+
+def thickness_map(deposits: torch.Tensor, params: SSFRParams) -> torch.Tensor:
+    """Blurred, scaled per-pixel thickness; `params.thickness` is its
+    minimum (the reference's `minimum_thickness`)."""
+    t = gaussian_blur(deposits, params.thickness_blur_radius)
+    return torch.clamp_min(params.thickness_scale * t, params.thickness)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -89,10 +138,11 @@ def reconstruct_normals(depth: torch.Tensor, cam: Camera, crop=None) -> torch.Te
 
 def shade(fluid_depth: torch.Tensor, bg_color: torch.Tensor, bg_depth: torch.Tensor,
           cubemap_sample, view_rot: torch.Tensor, params: SSFRParams, cam: Camera,
-          crop=None):
-    """The fluid_render_fixed_depth pass (fluid_render_fixed_depth.glsl:52-153)
-    with the reference's constant thickness. `bg_color`/`bg_depth` are
-    full-frame; under `crop` = (y0, x0, ch, cw) the depth and the returned
+          thickness: torch.Tensor | None = None, crop=None):
+    """The fluid_render_fixed_depth pass (fluid_render_fixed_depth.glsl:52-153).
+    `thickness`: the per-pixel map of thickness_map, or None for the
+    reference's constant. `bg_color`/`bg_depth` are full-frame; under
+    `crop` = (y0, x0, ch, cw) the depth, the thickness and the returned
     colour and mask are crop-sized. Returns (color [H, W, 3], mask [H, W])."""
     dev = fluid_depth.device
     if crop is not None:
@@ -131,7 +181,10 @@ def shade(fluid_depth: torch.Tensor, bg_color: torch.Tensor, bg_depth: torch.Ten
     refr_dir = ETA * ray_dir + (ETA * cos_i - sqrt_rn(torch.clamp_min(k, 0.0)))[
         ..., None] * normal
     h, w = fluid_depth.shape
-    uv_off = refr_dir[..., :2] * (params.thickness * params.refraction_strength)
+    if thickness is None:
+        uv_off = refr_dir[..., :2] * (params.thickness * params.refraction_strength)
+    else:
+        uv_off = refr_dir[..., :2] * (thickness[..., None] * params.refraction_strength)
     # pixel coordinates and the offset scale stay in full-frame terms
     fw, fh = cam.width, cam.height
     xs = torch.arange(w, dtype=torch.float32, device=dev) + float(x0c)
@@ -152,9 +205,63 @@ def shade(fluid_depth: torch.Tensor, bg_color: torch.Tensor, bg_depth: torch.Ten
         transmitted = bg_rows[sy * fw + sx]
 
     diffuse = torch.tensor(np.asarray(params.diffuse_color, np.float32), device=dev)
-    transmittance = torch.exp(-params.optical_density * (1.0 - diffuse) * params.thickness)
+    t_beer = params.thickness if thickness is None else thickness[..., None]
+    transmittance = torch.exp(-params.optical_density * (1.0 - diffuse) * t_beer)
     refr_color = transmitted * transmittance
 
     color = (refr_color * (1.0 - fresnel[..., None]) + refl_color * fresnel[..., None]
              + spec[..., None])
     return torch.where(live[..., None], color, bg_color_c), live
+
+
+def depth_debug_image(fluid_depth: torch.Tensor, params: SSFRParams) -> torch.Tensor:
+    """Greyscale linear-depth view (particle_depth_visualiser.glsl:58-63)."""
+    g = torch.clamp(_div(fluid_depth, params.depth_divisor), 0.0, 1.0)
+    g = torch.where(fluid_depth > FAR_GUARD, 1.0, g)
+    return torch.stack([g, g, g], dim=-1)
+
+
+def composite_threshold(dst: torch.Tensor, src: torch.Tensor,
+                        color_threshold: float = 0.01) -> torch.Tensor:
+    """The copy_texture pass: src where |rgb| >= threshold, else dst
+    (copy_texture.glsl:28-33)."""
+    return torch.where((norm3(src) >= color_threshold)[..., None], src, dst)
+
+
+def velocity_spheres_composite(bg_color: torch.Tensor, bg_depth: torch.Tensor,
+                               fluid_depth: torch.Tensor,
+                               fluid_color: torch.Tensor) -> torch.Tensor:
+    """The velocity-spheres mode: the fluid colour, depth-tested over the
+    background (fluid_render_velocity_spheres.glsl:50-67)."""
+    live = (fluid_depth <= FAR_GUARD) & (bg_depth >= fluid_depth)
+    return torch.where(live[..., None], fluid_color, bg_color)
+
+
+def lit_spheres_shade(bufs, bg_color: torch.Tensor, bg_depth: torch.Tensor,
+                      view_rot: torch.Tensor, params: SSFRParams, cam: Camera) -> torch.Tensor:
+    """The lit billboard-sphere view (billboard_sphere.gdshader:46-88): the
+    impostor normal (sx, -sy, sqrt(1 - s^2)) of SplatBuffers with sx/sy,
+    turned (Rodrigues) from +z onto the pixel's direction to the camera,
+    diffuse clamp(N.L, 0, 1) / pi * 2.2 plus ambient 0.25 on a uniform
+    sphere colour, depth-tested over the background."""
+    dev = bufs.depth.device
+    sx, sy = bufs.sx, bufs.sy
+    s2 = torch.clamp(sx * sx + sy * sy, 0.0, 1.0)
+    nx, ny, nz = sx, -sy, sqrt_rn(1.0 - s2)
+    view_dir = -screen_to_view_dir(cam, device=dev)  # fragment -> camera
+    vx, vy, c = -view_dir[..., 1], view_dir[..., 0], view_dir[..., 2]
+    s2v = torch.clamp_min(vx * vx + vy * vy, 1e-12)
+    k = (1.0 - c) / s2v
+    rx = nx * (1.0 - k * vy * vy) + ny * (k * vx * vy) + nz * vy
+    ry = nx * (k * vx * vy) + ny * (1.0 - k * vx * vx) - nz * vx
+    rz = -nx * vy + ny * vx + nz * c
+    normal = torch.stack([rx, ry, rz], dim=-1)
+
+    rot = as_view(view_rot, dev)[:3, :3]
+    light_v = rot @ torch.tensor(params.light_dir, dtype=torch.float32, device=dev)
+    to_light = _div(-light_v, float(np.linalg.norm(np.asarray(params.light_dir))))
+    ndotl = torch.clamp(dot3(normal, to_light), 0.0, 1.0)
+    sphere_color = torch.tensor([0.35, 0.55, 0.95], dtype=torch.float32, device=dev)
+    lit = (0.25 + _div(ndotl[..., None], np.pi) * 2.2) * sphere_color
+    live = (bufs.depth < BG_DEPTH) & (bufs.depth < bg_depth)
+    return torch.where(live[..., None], lit, bg_color)

@@ -2,7 +2,7 @@
 frame loops of chip_smoke.py (utils/render_bench: 640x360 cell quality, and
 1080p particle quality with surface bands) under torch.profiler.
 
-    python -m mpm_tpu_torch.utils.profile_render [--frames 20]
+    python -m mpm_tpu_torch.utils.profile_render [--frames 20] [--modes]
 
 For each loop it prints the unprofiled wall time per frame (3 fenced
 windows, u8 frames copied to pinned host memory, as chip_smoke times them),
@@ -10,12 +10,15 @@ the plain dilation alone on the frame's z-buffer (CUDA events), the device
 time by kernel and op under the profiler (CUDA self time, per frame), and
 the device's busy share: profiled device time over the best unprofiled
 frame time (the profiler's per-op host cost inflates a frame's wall time).
-Needs a card.
+With --modes it also profiles the 640x360 loop of the velocity, lit-sphere
+and depth modes (full frame) and of the default mode with the thickness
+pass, each from the state the 640x360 loop ends in. Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -71,6 +74,8 @@ def profile_loop(pool, cfgw, rc, state, view, frames: int, label: str):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="python -m mpm_tpu_torch.utils.profile_render")
     p.add_argument("--frames", type=int, default=20)
+    p.add_argument("--modes", action="store_true",
+                   help="also the 640x360 loops of the other render modes and the thickness pass")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_render needs a CUDA device")
@@ -84,6 +89,12 @@ def main(argv=None) -> None:
     rc = recipe_360(pool.config, view)
     state = profile_loop(pool, cfgw, rc, state, view, args.frames,
                          f"640x360 cell quality, crop {rc.crop}")
+    if args.modes:
+        for mode, kw in (("velocity_spheres", {}), ("lit_spheres", {}), ("depth_debug", {}),
+                         ("default", {"thickness_pass": True})):
+            rcm = dataclasses.replace(rc, mode=mode, ssfr=dataclasses.replace(rc.ssfr, **kw))
+            profile_loop(pool, cfgw, rcm, state, view, args.frames,
+                         f"640x360 {mode} {kw or ''}, crop {rcm.crop if mode == 'default' else None}")
     rc = recipe_1080(pool.config, state, cfgw.grid_res, view)
     profile_loop(pool, cfgw, rc, state, view, args.frames,
                  f"1080p particle quality, bands {rc.surface_bands}, crop {rc.crop}")

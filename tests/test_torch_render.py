@@ -110,7 +110,9 @@ def test_background_matches_jax():
     """Depth within rtol 1e-4 (near the horizon the floor's hit distance
     (floor_y - eye_y) / dir_y magnifies a last-bit difference of dir_y,
     where XLA fuses multiply-adds); colour within 1e-4 on all but 0.1% of
-    the pixels (the checker's floor(p / 8) can flip there)."""
+    the pixels (the checker's floor(p / 8) can flip there). The sampler of
+    None is the sky, and a cubemap's sampler equals the JAX package's on
+    the background's own directions."""
     cam, jcam = _cams()
     color, depth = background.render_background(cam, VIEW, device="cpu")
     jcolor, jdepth = jax.jit(lambda v: jbackground.render_background(jcam, v))(VIEW)
@@ -118,8 +120,11 @@ def test_background_matches_jax():
     off = np.abs(color.numpy() - np.asarray(jcolor)).max(axis=-1) > 1e-4
     assert off.mean() <= 0.001, off.mean()
     assert background.make_cubemap_sampler(None) is background.sky_color
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        background.make_cubemap_sampler(np.zeros((6, 4, 4, 3), np.float32))
+    faces = np.random.default_rng(9).uniform(0, 1, (6, 4, 4, 3)).astype(np.float32)
+    dirs = camera.screen_to_view_dir(cam) @ torch.tensor(VIEW)[:3, :3]
+    np.testing.assert_array_equal(
+        background.make_cubemap_sampler(torch.tensor(faces))(dirs).numpy(),
+        np.asarray(jbackground.make_cubemap_sampler(jnp.asarray(faces))(jnp.asarray(dirs.numpy()))))
 
 
 @pytest.mark.parametrize("crop", [None, "domain"])
@@ -238,11 +243,18 @@ def test_crop_frame_bit_exact(quality):
 
 
 def test_modes_not_ported_raise(pool):
+    """legacy_quad, the one mode still to port, raises with its ROADMAP
+    item; the velocity, lit-sphere and depth modes render a frame that
+    differs from the background; "none" is the background."""
     jcfg, jfluid, js = pool
     _, _, state = to_port(jcfg, jfluid, js)
-    for mode in ("velocity_spheres", "lit_spheres", "depth_debug", "legacy_quad"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_frame_buckets(state, VIEW, RenderConfig(camera=Camera(64, 32), mode=mode))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render_frame_buckets(state, VIEW, RenderConfig(camera=Camera(64, 32), mode="legacy_quad"))
+    for mode in ("velocity_spheres", "lit_spheres", "depth_debug"):
+        rc = RenderConfig(camera=Camera(64, 32), mode=mode)
+        img = render_frame_buckets(state, VIEW, rc)
+        assert img.shape == (32, 64, 3) and bool(torch.isfinite(img).all())
+        assert not torch.equal(img, background_for_view(rc, VIEW, "cpu")[0]), mode
     rc = RenderConfig(camera=Camera(64, 32), mode="none")
     assert torch.equal(render_frame_buckets(state, VIEW, rc),
                        background_for_view(rc, VIEW, "cpu")[0])
