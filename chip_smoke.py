@@ -22,9 +22,15 @@ window on 4 slabs, beside the same window unsharded, and its sharded
 frames with the thickness pass), holds the redesigned migration and P2G
 passes against their plain versions bit for bit under stress (a config-5
 slab as it is, with every slot filled, and under a random grid velocity,
-and the card tests' stress cases), runs the CLI (`--shards 1` and the new
-render flags too), and times each kernel beside its plain version and its
-roofline bound. Every main path runs with the launch counts set to 0 just before it
+and the card tests' stress cases), holds kernel F with the CLI's spheres
+(and an inactive fly-pointer sphere) on the settled pool against its plain
+version and steps the pool with a moving sphere, times the pool under the
+guard against the bare step and rolls a poisoned run back, runs the
+orbit-camera render loop (each frame equal to the plain chain's), runs the
+CLI (`--shards 1`, the render flags, and the run-time flags: spheres,
+fluid overrides, metrics, checkpoints and resume, the guard, the fly and
+orbit cameras and the HUD), and times each kernel beside its plain version
+and its roofline bound. Every main path runs with the launch counts set to 0 just before it
 and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
@@ -32,6 +38,7 @@ last is a JSON summary of the kernels; the last line is {"ok": true,
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -45,7 +52,8 @@ import time
 import numpy as np
 import torch
 
-from mpm_tpu_torch.__main__ import kernel_launches, live_particles, nvidia_smi_power
+from mpm_tpu_torch.__main__ import (_camera, _parse_interactions, kernel_launches,
+                                    live_particles, nvidia_smi_power)
 from mpm_tpu_torch.core.state import Grid
 from mpm_tpu_torch.models.scenes import (benchmark_dam_break, benchmark_scene,
                                          benchmark_scene_2d, dam_break_2d, fluid_3d,
@@ -70,6 +78,7 @@ from mpm_tpu_torch.render import (Camera, RenderConfig, background_for_view, buc
 from mpm_tpu_torch.render import blur_kernel as kb
 from mpm_tpu_torch.render import extract_kernel as kx
 from mpm_tpu_torch.render import ssfr as rssfr
+from mpm_tpu_torch.render.flycam import SpherePointer
 from mpm_tpu_torch.render.image import read_png_rgb
 from mpm_tpu_torch.render.splat import surface_band_uncovered
 from mpm_tpu_torch.utils import roofline
@@ -78,6 +87,7 @@ from mpm_tpu_torch.utils.render_bench import (N_POOL, frame_windows, pool_window
 from mpm_tpu_torch.utils.profile_2d import WINDOW_CALLS, warm_bench2d
 from mpm_tpu_torch.utils.profile_render_kernels import BL_ARGS, blur_buffers, device_ms
 from mpm_tpu_torch.utils.profile_shard import SLABS, config5_windows
+from mpm_tpu_torch.utils.guard import GuardedStep, state_is_finite
 from mpm_tpu_torch.utils.timing import cuda_time_ms, fenced_windows
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -703,6 +713,21 @@ def assert_bit_equal(got, want, label: str) -> None:
         raise AssertionError(f"{label}: differs from the plain version in {differ}")
 
 
+def assert_bit_equal_nan(got, want, label: str) -> None:
+    """assert_bit_equal for states that hold NaN: a float field NaN where
+    the other is NaN, every other value bit for bit."""
+    def same(a, b):
+        if a.is_floating_point():
+            if not torch.equal(a.isnan(), b.isnan()):
+                return False
+            a, b = (torch.where(x.isnan(), 0.0, x) for x in (a, b))
+        return torch.equal(a, b)
+
+    differ = [f for f in STATE_FIELDS if not same(getattr(got, f), getattr(want, f))]
+    if differ:
+        raise AssertionError(f"{label}: differs from the plain version in {differ}")
+
+
 def stress_grid(config, fluid, dev, seed: int) -> Grid:
     """A random grid velocity that moves particles up to 1.5 cells a
     substep along every axis (tests/test_torch_cuda.py's stress grid)."""
@@ -1035,7 +1060,226 @@ def run_cli(args, label: str, out: str, frames: int, want: tuple) -> None:
         raise AssertionError(f"render {' '.join(args)} failed (rc {res.returncode}, {len(pngs)} "
                              f"PNGs):\n{res.stdout}\n{res.stderr}")
     phase(label, " | ".join(res.stdout.strip().splitlines()[-4:]))
+    return res.stdout
 
+
+
+def phase_interactions(dev, smi: str, state, cfgw, win, pool) -> float:
+    """Kernel F's interaction branch on the settled pool window (bf16,
+    K=8): the two static spheres and the orbit sphere of frame 7, then the
+    same with the fly pointer's sphere inactive, each bit-equal to F's plain
+    version (the inactive sphere changes no bit, the three spheres do
+    push); then 10 chunks of 10 substeps of the window with the orbit
+    sphere moving each chunk, lost 0, interference 0, launch counts read
+    around them. Returns F's max abs error."""
+    # the CLI's --interact sphere=32,10,32,6 (in the fluid) and
+    # sphere=8,70,56,5,0.5 (above it) with --orbit-sphere
+    args = argparse.Namespace(interact=["sphere=32,10,32,6", "sphere=8,70,56,5,0.5"],
+                              orbit_sphere=True)
+    inter_fn = _parse_interactions(args, pool.config)[1]
+    three = inter_fn(7)
+    four = three + (SpherePointer(pool.config).interaction(),)
+    grid = kp.p2g_update_plain(state, cfgw, pool.fluid)
+    outs, err = [], 0.0
+    for inter, label in ((three, "3 spheres"), (four, "3 spheres + the inactive fly pointer")):
+        got = kf.g2p_migrate(state, grid, cfgw, pool.fluid, inter)
+        want = kf.g2p_migrate_plain(state, grid, cfgw, pool.fluid, inter)
+        torch.cuda.synchronize()
+        err = max(err, compare_states(got, want, cfgw, f"settled pool window {cfgw.grid_res} "
+                                      f"K=8 bf16, {label}"))
+        assert_bit_equal(got, want, f"kernel F with {label}")
+        outs.append(got)
+    assert_bit_equal(outs[1], outs[0], "kernel F with the inactive fly pointer")
+    # a NaN position in one live slot and the grid P's plain version makes
+    # from it: F and its plain version clamp it into the domain and keep it,
+    # the NaN left in vel and C
+    bad = poison(state)
+    bad_grid = kp.p2g_update_plain(bad, cfgw, pool.fluid)
+    got = kf.g2p_migrate(bad, bad_grid, cfgw, pool.fluid, three)
+    want = kf.g2p_migrate_plain(bad, bad_grid, cfgw, pool.fluid, three)
+    assert_bit_equal_nan(got, want, "kernel F on a NaN position")
+    nan_slots = int((~want.vel.isfinite()).any(dim=0).sum())
+    if (not bool(want.pos.isfinite().all()) or nan_slots == 0
+            or int((want.mass > 0).sum()) != int((bad.mass > 0).sum())
+            or int(want.lost) != int(bad.lost)):
+        raise AssertionError("kernel F on a NaN position: the particle was not kept")
+    del bad, bad_grid, got, want
+    bare = kf.g2p_migrate(state, grid, cfgw, pool.fluid)
+    pushed = int((bare.vel != outs[0].vel).any(dim=0).sum())
+    if pushed == 0:
+        raise AssertionError("kernel F: the three spheres pushed no slot")
+    lost0, hits0 = int(state.lost), win.interference
+    reset_launches()
+    s = state
+    for i in range(10):
+        s = win.step(s, pool.fluid, inter_fn(i))
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if min(launches[k] for k in ("p2g_update", "g2p_migrate")) <= 0:
+        raise AssertionError(f"the orbit-sphere chunks did not launch P and F: {launches}")
+    if int(s.lost) != lost0 or win.interference != hits0 or not state_is_finite(s):
+        raise AssertionError(f"orbit sphere: lost {int(s.lost) - lost0}, interference "
+                             f"{win.interference - hits0}")
+    phase("F-interact", f"3 spheres and 3 + the inactive pointer bit-equal to plain; the "
+          f"inactive sphere changes no bit; the spheres push {pushed} slots; a NaN position "
+          f"bit-equal to plain (NaN where NaN), kept, NaN in {nan_slots} slots' vel; 100 substeps "
+          f"with the orbit sphere moving every 10: lost 0 interference 0 window wy={win.wy}; "
+          f"launches P={launches['p2g_update']} F={launches['g2p_migrate']} [{smi}]")
+    return err
+
+
+def poison(state):
+    """A NaN in one live slot's position."""
+    k, c = np.unravel_index(int(torch.argmax(state.mass)), tuple(state.mass.shape))
+    pos = state.pos.clone()
+    pos[0, int(k), int(c)] = float("nan")
+    return state.replace(pos=pos)
+
+
+def phase_guard(dev, smi: str, state, win, pool) -> None:
+    """GuardedStep(snapshot_every=32, check_every=8) around the pool
+    window's 10-substep chunks against the bare window step: fenced windows
+    of 32 chunks, bare and guarded in turns, 3 of each, after one guarded
+    warm-up chunk; then a step that poisons pos with a NaN at call 20:
+    the guard rolls back once to a verified snapshot, halves dt, and its
+    last good state is finite."""
+    lost0 = int(state.lost)
+    guarded = GuardedStep(win.step, snapshot_every=32, check_every=8)
+    state = guarded(state, pool.fluid)
+    times = {"bare": [], "guarded": []}
+    for _ in range(3):
+        for name, fn in (("bare", win.step), ("guarded", guarded)):
+            state, t = fenced_windows(fn, state, pool.fluid, 32, 1)
+            times[name] += t
+    if not guarded.flush() or guarded.failures or int(state.lost) != lost0:
+        raise AssertionError(f"guard on a healthy pool: failures {guarded.failures}")
+    bare, guard = (sorted(times[k])[1] for k in ("bare", "guarded"))
+    calls = {"n": 0}
+
+    def flaky(s, fp, inter=()):
+        calls["n"] += 1
+        out = win.step(s, fp, inter)
+        return poison(out) if calls["n"] == 20 else out
+
+    g = GuardedStep(flaky, snapshot_every=32, check_every=8)
+    s = state
+    for _ in range(40):
+        s = g(s, pool.fluid)
+    if not g.flush():
+        s = g.last_good()
+    if (g.failures != 1 or g.current_dt_scale != 0.5 or not state_is_finite(g.last_good())
+            or not state_is_finite(s)):
+        raise AssertionError(f"guard rollback: failures {g.failures}, dt scale "
+                             f"{g.current_dt_scale}, last good finite "
+                             f"{state_is_finite(g.last_good())}")
+    phase("guard", f"pool window, 10 substeps a call, GuardedStep(snapshot_every=32, "
+          f"check_every=8): windows of 32 calls, bare {[round(t, 4) for t in times['bare']]} s, "
+          f"guarded {[round(t, 4) for t in times['guarded']]} s; medians {bare:.4f} / "
+          f"{guard:.4f} s -> ratio {guard / bare:.4f}; NaN in pos at call 20: failures 1, dt "
+          f"scale 0.5, {g.frames_lost} frames lost, the last good state finite [{smi}]")
+
+
+def phase_moving_camera(dev, smi: str, state, cfgw, pool, view) -> None:
+    """The default-mode full-frame loop at 640x360 under the CLI's
+    --orbit-camera (`_camera`, one orbit in 120 frames): no crop, the
+    background traced every frame. 12 frames with views 10 frames apart,
+    each frame and state equal to the plain chain's bit for bit; then
+    windows of 40 frames, the static loop (traced background, crop) and the
+    moving one in turns, 3 of each."""
+    subs = pool.config.substeps
+    args = argparse.Namespace(fly=False, fly_script=None, orbit_camera=True, frames=120)
+    view_fn = _camera(args, pool)[0]
+    rc = RenderConfig(camera=Camera(width=640, height=360))
+    frame = make_full_frame_step(cfgw, rc, subs)
+    sk = sp = state
+    first = img = None
+    for i in range(12):
+        v = view_fn(10 * i)
+        sk, img = frame(sk, pool.fluid, (), v, None)
+        with plain_chain():
+            sp, plain = frame(sp, pool.fluid, (), v, None)
+        if not torch.equal(img, plain):
+            raise AssertionError(f"orbit frame {10 * i}: the kernel path's frame differs from "
+                                 f"the plain chain's in {int((img != plain).any(-1).sum())} px")
+        assert_bit_equal(sk, sp, f"orbit frame {10 * i}: the kernel path's state")
+        first = img if first is None else first
+    du8 = mean_du8(first, img)
+    if not du8 > 1.0:
+        raise AssertionError(f"orbit camera: first and last frames {du8:.3f} mean |du8| apart")
+    rc0 = recipe_360(pool.config, view)
+    bg = background_for_view(rc0, view, dev)
+    static = make_full_frame_step(cfgw, rc0, subs)
+    lost0 = int(state.lost)
+    times = {"static": [], "moving": []}
+    launches = {}
+    for _ in range(3):
+        state, _, t = frame_windows(static, state, pool.fluid, view, bg, 40, 1)
+        times["static"] += t
+        reset_launches()
+        state, _, t = frame_windows(frame, state, pool.fluid, view_fn, None, 40, 1)
+        times["moving"] += t
+        launches = kernel_launches()
+    if min(launches[k] for k in ("g2p_migrate_emit", "blur_depth")) <= 0:
+        raise AssertionError(f"the orbit loop did not launch F-emit and BL: {launches}")
+    if int(state.lost) != lost0 or int(state.ceiling) != 0:
+        raise AssertionError("orbit loop: particles lost or a ceiling hit")
+    ms = {k: sorted(v)[1] / 40 * 1e3 for k, v in times.items()}
+    phase("render360-orbit", f"12 orbit frames 10 apart equal the plain chain's bit for bit "
+          f"(states too), first to last {du8:.3f} mean |du8|; windows of 40 frames, static "
+          f"{[round(t, 4) for t in times['static']]} s, orbit "
+          f"{[round(t, 4) for t in times['moving']]} s -> median {ms['static']:.3f} ms/frame "
+          f"static (crop {rc0.crop}), {ms['moving']:.3f} orbiting (no crop, background "
+          f"traced every frame); launches {launches} [{smi}]")
+
+
+def phase_cli_runtime() -> None:
+    """The CLI's run-time flags on the card: `run` with the interactions,
+    fluid overrides, metrics, checkpoints and the guard; resume with and
+    without the window; `render` with a scripted flight and the orbit
+    camera (the HUD on both); the 2D render with a sphere."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_runtime_") as tmp:
+        ck, met = os.path.join(tmp, "ck"), os.path.join(tmp, "m.jsonl")
+
+        def run(args, label):
+            cmd = [sys.executable, "-m", "mpm_tpu_torch", "run", "fluid_3d", *args]
+            res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if res.returncode != 0 or not re.search(r"^lost: 0 ", res.stdout, re.M):
+                raise AssertionError(f"run {' '.join(args)} failed (rc {res.returncode}):\n"
+                                     f"{res.stdout}\n{res.stderr}")
+            phase(label, " | ".join(res.stdout.strip().splitlines()[-4:]))
+            return res.stdout
+
+        run(["--window", "auto", "--frames", "12", "--interact", "sphere=32,10,32,6",
+             "--orbit-sphere", "--fluid", "dt=0.15", "--flip-gravity-at", "6", "--metrics", met,
+             "--checkpoint-every", "6", "--checkpoint-dir", ck, "--guard"], "cli-run-runtime")
+        with open(met) as f:
+            events = [json.loads(line)["event"] for line in f]
+        npz = sorted(f for f in os.listdir(ck) if f.endswith(".npz"))
+        if not {"compile", "frame", "guard", "counters", "summary"} <= set(events) or npz != [
+                "frame_00006.npz", "frame_00012.npz"]:
+            raise AssertionError(f"run: metrics events {events}, checkpoints {npz}")
+        phase("cli-run-runtime", f"metrics events {sorted(set(events))} ({len(events)} "
+              f"records), checkpoints {npz}")
+        for window in (["--window", "auto"], []):
+            out = run(["--resume", os.path.join(ck, "frame_00012.npz"), "--frames", "3",
+                       *window], "cli-resume" + ("-window" if window else ""))
+            if "resumed from" not in out:
+                raise AssertionError(f"resume did not resume:\n{out}")
+        for args, label, frames in ((["--fly-script", "w:4,wp:4,l:4"], "cli-render-fly", 12),
+                                    (["--orbit-camera"], "cli-render-orbit", 6)):
+            out = os.path.join(tmp, label)
+            run_cli(["fluid_3d", *args, "--hud"], label, out, frames, ("g2p_migrate_emit",))
+            a, b = (read_png_rgb(os.path.join(out, f"frame_{i:05d}.png"))
+                    for i in (0, frames - 1))
+            du8 = float(np.abs(a.astype(np.int32) - b.astype(np.int32)).mean())
+            glyphs = int((b[:60, :200] == 255).all(axis=-1).sum())
+            if not du8 > 1.0 or glyphs == 0:
+                raise AssertionError(f"{label}: first to last {du8:.3f} mean |du8|, "
+                                     f"{glyphs} HUD glyph pixels")
+            phase(label, f"first to last frame {du8:.3f} mean |du8| (bar > 1); {glyphs} "
+                  "white HUD pixels in the top-left box")
+        run_cli(["dam_break_2d", "--interact", "sphere=32,20,6", "--hud"], "cli-render-2d-interact",
+                os.path.join(tmp, "2d"), 3, ("sim2d",))
 
 
 def phase_sharded_render(dev, smi: str, state, cfgw, pool, view) -> None:
@@ -1337,6 +1581,12 @@ def main() -> None:
     phase_particles_and_cubemap(dev, smi, state, win.config, pool, view)
     phase_sharded_render(dev, smi, state, win.config, pool, view)
     phase_sharded_modes(dev, smi, state, win.config, pool, view)
+    # the run-time surface: F's interaction branch, the guard, the orbit
+    # camera, each from the settled state (the window follows its height)
+    cfgw = win.config
+    err_f = max(err_f, phase_interactions(dev, smi, state, cfgw, win, pool))
+    phase_guard(dev, smi, state, win, pool)
+    phase_moving_camera(dev, smi, state, cfgw, pool, view)
     del state
 
     # 7. main path: the 1M dam-break, no window
@@ -1449,6 +1699,7 @@ def main() -> None:
                 os.path.join(tmp, "r"), 2, ("p2g_update", "blur_depth"))
         run_cli(["fluid_3d", "--cubemap", faces], "cli-render-cubemap",
                 os.path.join(tmp, "c"), 2, ("g2p_migrate_emit", "blur_depth"))
+    phase_cli_runtime()
 
     # launches: each kernel's count from the main path that runs it (the
     # pool for P and F, the 640x360 render loops of every mode for the

@@ -29,13 +29,70 @@ mode of `--device cpu`. `--shards N` runs the x-slab decomposition
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
+
+
+def _common(q: argparse.ArgumentParser) -> None:
+    """The flags of both `run` and `render` (mpm_tpu/__main__.py:19-103)."""
+    q.add_argument("scene", nargs="?", default="fluid_3d")
+    q.add_argument("--frames", type=int, default=30)
+    q.add_argument("--substeps", type=int, default=None,
+                   help="substeps per frame (default: the scene's)")
+    q.add_argument("--mode", default="auto",
+                   choices=["auto", "bucketed", "cuda", "pallas", "reference", "binned"],
+                   help="auto/cuda (pallas, the JAX package's name) = the CUDA kernels; "
+                   "bucketed = the plain PyTorch engine; reference and binned are not "
+                   "ported (ROADMAP.md)")
+    q.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda = the card (stops when none is visible); cpu = "
+                   "the plain engine on the CPU, --mode bucketed only")
+    q.add_argument("--window", default="off", choices=["off", "auto"],
+                   help="auto = air-window engine (ops/window.py): arrays "
+                   "track the occupied y-range; identical physics (3D only)")
+    q.add_argument("--shards", type=int, default=0,
+                   help="N > 0: x-slab decomposition over the first N visible "
+                   "cards (N CPU slabs with --device cpu); 3D scenes")
+    q.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="write the state every N frames (utils/checkpoint.py; "
+                   "npz files the JAX package reads)")
+    q.add_argument("--checkpoint-dir", default=os.path.join(tempfile.gettempdir(), "mpm_ckpt"),
+                   help="directory of the checkpoints (default: mpm_ckpt in the "
+                   "temporary directory)")
+    q.add_argument("--resume", default=None, metavar="NPZ",
+                   help="checkpoint to resume from (this package's or the JAX package's)")
+    q.add_argument("--guard", action="store_true",
+                   help="`run` only: async finiteness checks with verified-snapshot "
+                   "rollback and dt backoff (utils/guard.GuardedStep)")
+    q.add_argument("--guard-snapshot-every", type=int, default=32, metavar="N",
+                   help="frames between rollback snapshots")
+    q.add_argument("--guard-check-every", type=int, default=8, metavar="N",
+                   help="frames between async finiteness checks")
+    q.add_argument("--interact", action="append", default=[],
+                   metavar="sphere=x,y[,z],r[,strength]",
+                   help="radial force sphere (repeatable), the reference's sphere "
+                   "collider (g2p.glsl:122-129); at most 8 with --orbit-sphere and "
+                   "the fly pointer")
+    q.add_argument("--fluid", action="append", default=[], metavar="KEY=VALUE",
+                   help="override a fluid parameter (dt, gravity, rest_density, "
+                   "dynamic_viscosity, eos_stiffness, eos_power, pressure_floor; "
+                   "comma-separated vectors); repeatable. A scene with a static EOS "
+                   "exponent keeps it")
+    q.add_argument("--flip-gravity-at", type=int, default=0, metavar="FRAME",
+                   help="invert gravity from this frame on")
+    q.add_argument("--metrics", default=None, metavar="PATH",
+                   help="append JSONL metrics (utils/metrics.py) here")
+    q.add_argument("--orbit-sphere", action="store_true",
+                   help="a repulsion sphere orbiting the domain centre, moved every frame")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -43,23 +100,8 @@ def _parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="step a scene headless")
     render = sub.add_parser("render", help="step a scene and write PNG frames")
-    for q in (run, render):
-        q.add_argument("scene", nargs="?", default="fluid_3d")
-        q.add_argument("--frames", type=int, default=30)
-        q.add_argument("--substeps", type=int, default=None,
-                       help="substeps per frame (default: the scene's)")
-        q.add_argument("--mode", default="auto", choices=["auto", "bucketed", "cuda"],
-                       help="auto/cuda = the CUDA kernels; bucketed = the plain "
-                       "PyTorch engine")
-        q.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                       help="cuda = the card (stops when none is visible); cpu = "
-                       "the plain engine on the CPU, --mode bucketed only")
-        q.add_argument("--window", default="off", choices=["off", "auto"],
-                       help="auto = air-window engine (ops/window.py): arrays "
-                       "track the occupied y-range; identical physics (3D only)")
-        q.add_argument("--shards", type=int, default=0,
-                       help="N > 0: x-slab decomposition over the first N visible "
-                       "cards (N CPU slabs with --device cpu); 3D scenes")
+    _common(run)
+    _common(render)
     render.add_argument("--out", default="mpm_frames", help="directory of the PNGs")
     render.add_argument("--width", type=int, default=960)
     render.add_argument("--height", type=int, default=540)
@@ -71,7 +113,8 @@ def _parser() -> argparse.ArgumentParser:
     render.add_argument("--sphere-radius", type=float, default=1.0)
     render.add_argument("--crop", default="auto", choices=["auto", "off"],
                         help="auto = the dilation, blur and shade run on the "
-                        "domain's projected rectangle only (the same frame)")
+                        "domain's projected rectangle only (the same frame); a moving "
+                        "camera takes none")
     render.add_argument("--render-mode", default="default",
                         choices=["default", "velocity_spheres", "lit_spheres", "depth_debug",
                                  "none", "legacy_quad"],
@@ -86,6 +129,30 @@ def _parser() -> argparse.ArgumentParser:
     render.add_argument("--cubemap", default=None, metavar="DIR",
                         help="6-face PNG cubemap for the reflections (*-1..6.png or "
                         "px/nx/py/ny/pz/nz.png)")
+    render.add_argument("--orbit-camera", action="store_true",
+                        help="the camera orbits the domain centre once over the run")
+    render.add_argument("--fly", action="store_true",
+                        help="interactive fly camera (render/flycam.py): w/a/s/d move, "
+                        "q/e down/up, arrows or i/j/k/l look, +/- speed, SPACE pushes "
+                        "the fluid with the sphere at the crosshair, Esc quits; reads "
+                        "raw stdin, needs a terminal")
+    render.add_argument("--fly-script", default=None, metavar="SPEC",
+                        help="deterministic fly-camera key schedule, e.g. 'w:30,wl:10' "
+                        "('.' = coast, 'p' = push); frames at a fixed 60 Hz delta")
+    render.add_argument("--fly-speed", type=float, default=40.0,
+                        help="fly speed, world units/s")
+    render.add_argument("--fly-look-rate", type=float, default=2.5,
+                        help="look rate, degrees per frame a look key is held")
+    render.add_argument("--fly-plane-y", type=float, default=None,
+                        help="the fly pointer's sphere sits where the crosshair ray "
+                        "meets the plane y = PLANE_Y (default: domain height / 5)")
+    render.add_argument("--fly-sphere-radius", type=float, default=None,
+                        help="the fly pointer's sphere radius (default max(4, nx / 8))")
+    render.add_argument("--fly-sphere-strength", type=float, default=1.0,
+                        help="the fly pointer's radial push strength")
+    render.add_argument("--hud", action="store_true",
+                        help="burn the FPS / frame-time overlay into the frames "
+                        "(render/hud.py)")
     sub.add_parser("info", help="print the device")
     return p
 
@@ -181,39 +248,206 @@ def kernel_launches() -> dict:
             "g2p_planes": planes.g2p_launches, "migrate_planes": migrate_planes.launches}
 
 
-def cmd_run(args) -> None:
+def _apply_fluid_overrides(args, fluid):
+    """--fluid KEY=VALUE and --flip-gravity-at (mpm_tpu/__main__.py:106-126):
+    (fluid0, fluid_fn(frame) -> FluidParams). Values stay float32 CPU
+    tensors of the field's shape; the kernels read them per call, so a
+    change rebuilds nothing."""
+    names = {f.name for f in dataclasses.fields(fluid)}
+    for spec in args.fluid:
+        key, _, val = spec.partition("=")
+        if key not in names:
+            raise SystemExit(f"unknown fluid parameter {key!r}")
+        cur = getattr(fluid, key)
+        arr = np.asarray([float(v) for v in val.split(",")], np.float32)
+        if arr.size != cur.numel():
+            raise SystemExit(f"--fluid {spec!r}: {key} takes {cur.numel()} value(s)")
+        fluid = dataclasses.replace(fluid, **{key: torch.from_numpy(arr.reshape(cur.shape))})
+
+    flip = args.flip_gravity_at
+    flipped = dataclasses.replace(fluid, gravity=-fluid.gravity)
+
+    def fluid_fn(frame):
+        return flipped if flip and frame >= flip else fluid
+
+    return fluid, fluid_fn
+
+
+def _parse_interactions(args, config, reserved: int = 0):
+    """--interact sphere=... and --orbit-sphere (mpm_tpu/__main__.py:129-167):
+    (interactions0, inter_fn(frame) -> tuple). A 2D scene takes spheres
+    too. The kernels take at most MAX_INTER interactions, `reserved` of
+    them spoken for by the caller (the fly pointer): a run that asks for
+    more stops."""
+    from .ops.interact import Interaction
+
+    if config.dim == 3:
+        from .ops.cuda.g2p_migrate import MAX_INTER
+    else:
+        from .ops.cuda.substep2d import MAX_INTER
+    static = []
+    for spec in args.interact:
+        kind, _, rest = spec.partition("=")
+        vals = [float(v) for v in rest.split(",") if v]
+        if kind != "sphere" or len(vals) < config.dim + 1:
+            raise SystemExit(f"bad --interact {spec!r}: expected sphere=x,y,z,r[,strength]")
+        center, radius = vals[: config.dim], vals[config.dim]
+        strength = vals[config.dim + 1] if len(vals) > config.dim + 1 else 1.0
+        static.append(Interaction.sphere(center, radius=radius, strength=strength))
+    total = len(static) + int(args.orbit_sphere) + reserved
+    if total > MAX_INTER:
+        raise SystemExit(f"{total} interactions: the kernels take at most {MAX_INTER} "
+                         "(--interact, --orbit-sphere and the fly pointer)")
+
+    if not args.orbit_sphere:
+        inter = tuple(static)
+        return inter, lambda frame: inter
+
+    res = np.asarray(config.grid_res, np.float32)
+    cx = res / 2.0
+    orbit_r = float(res[0]) / 4.0
+    radius = max(4.0, float(res[0]) / 8.0)
+
+    def update(frame):
+        ang = 2.0 * np.pi * frame / 120.0
+        center = cx.copy()
+        center[0] += orbit_r * np.cos(ang)
+        center[-1] += orbit_r * np.sin(ang)
+        if config.dim == 3:
+            center[1] = res[1] / 5.0  # sweep through the pool depth
+        orb = Interaction.sphere(center[: config.dim], radius=radius, strength=1.0)
+        return tuple(static) + (orb,)
+
+    return update(0), update
+
+
+def _resume(args, scene, state, win, mesh, device):
+    """--resume (mpm_tpu/__main__.py:271-314): (scene with the checkpoint's
+    fluid, state at this run's shapes). A windowed checkpoint stores its
+    window's arrays with domain_res the true grid: such a state, and any
+    state of a windowed run, is un-windowed to a SimState and re-bucketed
+    at this run's window; a SimState becomes buckets; a sharded run shards
+    it."""
+    from .ops import bucketed
+    from .utils import checkpoint
+
+    ck, fluid, ck_config, _ = checkpoint.load(args.resume, device)
+    ck_windowed = bool(ck_config and ck_config.get("domain_res"))
+    if ck_config is not None:
+        ck_grid = tuple(ck_config.get("domain_res")
+                        or ck_config.get("grid_res", scene.config.grid_res))
+        if ck_grid != tuple(scene.config.grid_res):
+            raise SystemExit(f"checkpoint domain {ck_grid} != scene grid "
+                             f"{scene.config.grid_res}; pass the matching scene")
+    if (win is not None or ck_windowed) and isinstance(ck, bucketed.BucketState):
+        ck = bucketed.to_simstate(ck)
+    if win is not None:
+        ck = win.init(ck)
+    elif not isinstance(ck, bucketed.BucketState):
+        ck = bucketed.from_simstate(ck, scene.config)
+        print("converted linear checkpoint state to buckets")
+    if mesh is not None and win is None:
+        from .parallel.domain import shard_bucket_state
+
+        ck = shard_bucket_state(ck, scene.config, mesh)
+    print(f"resumed from {args.resume}")
+    return scene._replace(fluid=fluid), ck
+
+
+def _setup(args):
+    """(device, scene, mesh, step, state, win) of `run` and `render`, the
+    state resumed from --resume when given."""
     from .models.scenes import get_scene
-    from .utils.timing import FrameStats, fence
 
     device = _device(args)
     scene = get_scene(args.scene, device=device)
+    mesh = _mesh(args, scene, device)
+    substeps = args.substeps or scene.config.substeps
+    window = args.window if scene.config.dim == 3 else "off"
+    step, state, win = build(scene, args.mode, window, substeps, mesh)
+    if args.resume:
+        scene, state = _resume(args, scene, state, win, mesh, device)
+    return device, scene, mesh, step, state, win
+
+
+def _checkpoint(args, frame: int, state, scene, win) -> None:
+    """After frame `frame` (0-based), every --checkpoint-every frames: the
+    state with the scene's fluid and config (a windowed run's window config,
+    whose domain_res is the true grid)."""
+    if not args.checkpoint_every or (frame + 1) % args.checkpoint_every:
+        return
+    from .utils import checkpoint
+
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    path = os.path.join(args.checkpoint_dir, f"frame_{frame + 1:05d}.npz")
+    checkpoint.save(path, state, scene.fluid, win.config if win is not None else scene.config)
+    print(f"checkpointed {path}")
+
+
+def _log_counters(metrics, state) -> None:
+    metrics.log("counters", lost=int(state.lost), deferred=int(state.deferred),
+                cfl_clamped=int(state.cfl_clamped), ceiling=int(state.ceiling))
+
+
+def cmd_run(args) -> None:
+    from .utils.metrics import MetricsLogger
+    from .utils.timing import FrameStats, fence
+
+    device, scene, mesh, step, state, win = _setup(args)
     n = scene.state.num_particles
     substeps = args.substeps or scene.config.substeps
-    mesh = _mesh(args, scene, device)
-    step, state, win = build(scene, args.mode, args.window, substeps, mesh)
+    inter0, inter_fn = _parse_interactions(args, scene.config)
+    fluid0, fluid_fn = _apply_fluid_overrides(args, scene.fluid)
+    scene = scene._replace(fluid=fluid0)
     print(f"scene={scene.name} N={n} grid={scene.config.grid_res} "
-          f"mode={args.mode} device={device}")
+          f"mode={args.mode} device={device}"
+          + (f" interactions={len(inter0)}" if inter0 else ""))
     if win is not None:
         print(f"air-window engine: wy={win.wy} of ny={scene.config.grid_res[1]}")
 
+    metrics = MetricsLogger(path=args.metrics)
+    if args.guard:
+        from .utils.guard import GuardedStep
+
+        step = GuardedStep(step, snapshot_every=args.guard_snapshot_every,
+                           check_every=args.guard_check_every)
     t0 = time.perf_counter()
-    state = step(state, scene.fluid, ())
+    state = step(state, scene.fluid, inter0)
     fence(state)
-    print(f"first frame: {time.perf_counter() - t0:.1f}s (builds the CUDA kernels "
-          "on first use)")
+    compile_s = time.perf_counter() - t0
+    print(f"first frame: {compile_s:.1f}s (builds the CUDA kernels on first use)")
+    metrics.log("compile", seconds=round(compile_s, 3), scene=scene.name, mode=args.mode, n=n)
 
     stats = FrameStats()
     stats.tick()
-    for _ in range(args.frames):
-        state = step(state, scene.fluid, ())
+    for i in range(args.frames):
+        state = step(state, fluid_fn(i), inter_fn(i))
         fence(state)
         stats.tick()
+        if args.metrics:
+            s_ = stats.stats
+            metrics.log("frame", i=i, last_ms=round(s_["last_ms"], 3),
+                        avg_ms=round(s_["avg_ms"], 3))
+        _checkpoint(args, i, state, scene, win)
+    if args.guard:
+        ok = step.flush()
+        if step.failures or not ok:
+            print(f"guard: {step.failures} rollback(s), {step.frames_lost} frame(s) lost, "
+                  f"dt scale {step.current_dt_scale:g}")
+            if not ok:
+                state = step.last_good()
+        metrics.log("guard", failures=step.failures, frames_lost=step.frames_lost,
+                    dt_scale=step.current_dt_scale)
     s = stats.stats
     pps = n * substeps * s["fps"]
     print(f"frames={args.frames} avg={s['avg_ms']:.2f}ms min={s['min_ms']:.2f} "
           f"max={s['max_ms']:.2f} fps={s['fps']:.1f} -> {pps / 1e6:.1f}M "
           f"particle-steps/s on {device}")
     _print_counters(state)
+    _log_counters(metrics, state)
+    metrics.log("summary", frames=args.frames, fps=round(s["fps"], 2),
+                particle_steps_per_sec=round(pps, 1))
+    metrics.close()
     if win is not None:
         print(f"window: wy={win.wy} resizes={win.resizes} "
               f"interference={win.interference}")
@@ -231,6 +465,51 @@ def live_particles(state):
     return torch.where(live, pos, -1e6), norm3(vel.T)
 
 
+def _camera(args, scene):
+    """The render loop's camera (mpm_tpu/__main__.py:494-561): (view_fn(frame)
+    -> [4, 4] float32 CPU view, moves, key source or None, SpherePointer or
+    None). --fly / --fly-script fly it (the pointer steers a sphere in 3D),
+    --orbit-camera circles the domain once over the run, else the scene's
+    default view, one tensor for every frame. A moving camera's view is
+    made on the host each frame, so the render scalars never come back
+    from the card."""
+    from .render import default_view, look_at
+
+    c = [r / 2.0 for r in scene.config.grid_res]
+    if args.fly_script or args.fly:
+        from .render.flycam import FlyCamera, ScriptKeys, SpherePointer, TerminalKeys
+
+        src = ScriptKeys(args.fly_script) if args.fly_script else TerminalKeys()
+        cam = FlyCamera((c[0] + 55.0, c[1] + 28.0, c[2] + 55.0), (c[0], c[1] - 8.0, c[2]),
+                        speed=args.fly_speed, look_rate=args.fly_look_rate)
+        pointer = SpherePointer(scene.config, plane_y=args.fly_plane_y,
+                                radius=args.fly_sphere_radius,
+                                strength=args.fly_sphere_strength)
+        prev = [time.perf_counter()]
+
+        def view_fn(frame):
+            now = time.perf_counter()
+            # scripted flights step a fixed 60 Hz delta (replayable),
+            # interactive ones the frame's own, as the reference does
+            dt = 1.0 / 60.0 if args.fly_script else min(now - prev[0], 0.25)
+            prev[0] = now
+            keys = src.poll()
+            cam.apply_keys(keys, dt)
+            pointer.update(cam, keys)
+            return torch.from_numpy(cam.view())
+
+        return view_fn, True, src, pointer
+    if args.orbit_camera:
+        def view_fn(frame):
+            ang = 2.0 * np.pi * frame / max(args.frames, 1)
+            eye = (c[0] + 75.0 * np.cos(ang), c[1] + 28.0, c[2] + 75.0 * np.sin(ang))
+            return torch.from_numpy(look_at(eye, (c[0], c[1] - 8.0, c[2])))
+
+        return view_fn, True, None, None
+    view = default_view(scene.config.grid_res)
+    return (lambda frame: view), False, None, None
+
+
 def cmd_render(args) -> None:
     """The frame loop of mpm_tpu/__main__.py cmd_render: with --window auto
     the air-window engine steps and render_frame_buckets draws (kernel X);
@@ -241,33 +520,42 @@ def cmd_render(args) -> None:
     quality cell and a drawing render mode only, as
     mpm_tpu/__main__.py:570-636); with --sphere-render-ratio below 1 the
     live slots feed render_frame as a particle array. A 2D scene takes
-    _render_2d_loop. Frames leave the device as u8, and PNG writes overlap
-    the next frames on worker threads."""
-    from .models.scenes import get_scene
-    from .render import (Camera, RenderConfig, SSFRParams, background_for_view,
-                         default_view, domain_crop, frame_to_u8, load_cubemap,
-                         make_full_frame_step, render_frame, render_frame_buckets)
+    _render_2d_loop. Every frame takes its fluid, interactions and view
+    from the run-time flags; a moving camera (--orbit-camera, --fly,
+    --fly-script) traces the background each frame and takes no crop."""
+    from .render import (Camera, RenderConfig, SSFRParams, background_for_view, domain_crop,
+                         frame_to_u8, load_cubemap, make_full_frame_step, render_frame,
+                         render_frame_buckets)
 
     if args.render_mode == "legacy_quad":
         raise SystemExit("--render-mode legacy_quad is still to port (ROADMAP.md, queue 1, "
                          "item 'the dormant reference paths')")
-    device = _device(args)
-    scene = get_scene(args.scene, device=device)
-    mesh = _mesh(args, scene, device)
     particle_path = args.sphere_render_ratio < 1.0
-    if mesh is not None and args.window == "auto":
+    if args.shards and args.window == "auto":
         raise SystemExit("--shards render supports --window off only (the windowed+sharded "
                          "engine is available via `run`)")
-    if mesh is not None and particle_path:
+    if args.shards and particle_path:
         raise SystemExit("--shards render requires the bucket render path "
                          "(--sphere-render-ratio 1.0)")
-    if mesh is not None and (args.render_quality != "cell" or args.render_mode == "none"):
+    if args.shards and (args.render_quality != "cell" or args.render_mode == "none"):
         raise SystemExit("--shards render uses the distributed cell-splat composite: "
                          "requires --render-quality cell and a drawing --render-mode")
+    device, scene, mesh, step, state, win = _setup(args)
+    fluid0, fluid_fn = _apply_fluid_overrides(args, scene.fluid)
+    scene = scene._replace(fluid=fluid0)
     if scene.config.dim == 2:
-        return _render_2d_loop(args, scene, device)
+        return _render_2d_loop(args, scene, step, state, device, fluid_fn)
     n = scene.state.num_particles
     substeps = args.substeps or scene.config.substeps
+    view_fn, moves, keys, pointer = _camera(args, scene)
+    inter_fn = _parse_interactions(args, scene.config, reserved=int(pointer is not None))[1]
+    if pointer is not None:
+        # the pointer's sphere is in every frame's tuple; `active` gates it
+        base_inter_fn = inter_fn
+
+        def inter_fn(frame):
+            return base_inter_fn(frame) + (pointer.interaction(),)
+
     cam = Camera(width=args.width, height=args.height)
     rc = RenderConfig(camera=cam, mode=args.render_mode,
                       ssfr=SSFRParams(particle_sphere_radius=args.sphere_radius,
@@ -276,20 +564,20 @@ def cmd_render(args) -> None:
                       sphere_render_ratio=args.sphere_render_ratio,
                       quality=args.render_quality, max_radius_px=args.max_radius_px)
     cubemap = load_cubemap(args.cubemap, device) if args.cubemap else None
-    view = default_view(scene.config.grid_res)
-    if args.crop == "auto":
-        rc = domain_crop(rc, scene.config, view)
+    if args.crop == "auto" and not moves:
+        rc = domain_crop(rc, scene.config, view_fn(0))
         if rc.crop:
             y0, x0, ch, cw = rc.crop
             print(f"fluid crop: {cw}x{ch}+{x0}+{y0} "
                   f"({cw * ch / (cam.width * cam.height):.0%} of frame)")
-    step, state, win = build(scene, args.mode, args.window, substeps, mesh)
     print(f"scene={scene.name} N={n} grid={scene.config.grid_res} mode={args.mode} "
           f"window={args.window} {cam.width}x{cam.height} render-mode={rc.mode} "
           f"quality={rc.quality} thickness-pass={rc.ssfr.thickness_pass} "
           f"sphere-render-ratio={rc.sphere_render_ratio} cubemap={args.cubemap} "
-          f"device={device}")
-    bg = background_for_view(rc, view, device)
+          f"camera={'moving' if moves else 'static'} device={device}"
+          + (f" interactions={len(inter_fn(0))}" if inter_fn(0) else ""))
+    # a static camera's background is traced once; a moving one's each frame
+    bg = None if moves else background_for_view(rc, view_fn(0), device)
     full_frame = None
     if mesh is not None:
         from .parallel.render import make_sharded_frame_step
@@ -299,21 +587,22 @@ def cmd_render(args) -> None:
     elif (args.mode != "bucketed" and win is None and rc.quality == "cell"
           and not particle_path and rc.mode != "none"):
         full_frame = make_full_frame_step(scene.config, rc, substeps, cubemap_faces=cubemap)
-    grid_res = (win.config if win is not None else scene.config).grid_res
 
-    def frame(state):
+    def frame(state, i):
+        view, fp, inter = view_fn(i), fluid_fn(i), inter_fn(i)
         if full_frame is not None:
-            return full_frame(state, scene.fluid, (), view, bg)
-        state = step(state, scene.fluid, ())
+            return full_frame(state, fp, inter, view, bg)
+        state = step(state, fp, inter)
         if particle_path:
             pos, vmag = live_particles(state)
             img = render_frame(pos, vmag, view, rc, cubemap_faces=cubemap, bg=bg)
         else:
+            grid_res = (win.config if win is not None else scene.config).grid_res
             img = render_frame_buckets(state, view, rc, bg=bg, grid_res=grid_res,
                                        cubemap_faces=cubemap)
         return state, frame_to_u8(img)
 
-    state = _write_frames(args, frame, state, n, substeps, device)
+    state = _write_frames(args, frame, state, scene, win, device, keys)
     _print_counters(state)
     if win is not None:
         print(f"window: wy={win.wy} resizes={win.resizes} "
@@ -321,56 +610,136 @@ def cmd_render(args) -> None:
     print("kernel launches: " + " ".join(f"{k}={v}" for k, v in kernel_launches().items()))
 
 
-def _write_frames(args, frame, state, n: int, substeps: int, device) -> object:
-    """The frame loop of `render`: `frame(state) -> (state, u8 frame)` on
-    the device, the frame to the host, its PNG written on a worker thread
-    while the next frames run. Prints the timing line; returns the state."""
+def _to_host(img: torch.Tensor, copier):
+    """Fence a frame and start its copy to the host: (host tensor, done,
+    copied). On a card `done` marks the end of the frame's work on the
+    current stream, which the loop waits for (the frame's device time);
+    the copy into pinned memory runs behind it on the `copier` stream,
+    overlapping the next frame's work, and `copied` marks its end, which
+    the worker thread waits for. On the CPU the frame is its own host
+    tensor and there are no events."""
+    if img.device.type != "cuda":
+        return img, None, None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(img.device))
+    host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+    copier.wait_event(done)
+    with torch.cuda.stream(copier):
+        host.copy_(img, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(copier)
+    img.record_stream(copier)  # the allocator keeps img until the copy ends
+    return host, done, copied
+
+
+def _write_frames(args, frame, state, scene, win, device, keys=None):
+    """The frame loop of `render` (mpm_tpu/__main__.py:684-794):
+    `frame(state, i) -> (state, u8 frame)` on the device. The frame's copy
+    to the host starts at once on a stream of its own; its host side (the
+    wait for the copy, the HUD, the PNG) runs on a worker thread while the
+    next frames run. Each frame after the first records its device time
+    (dispatch to the fenced frame) and the loop's host time (handing the
+    previous frame over),
+    which the HUD's DEV | HOST line and the `frame` metrics read. Stops
+    early when the fly camera's keys quit. Prints the timing line and
+    writes the metrics; returns the state."""
     from .render import write_png
+    from .utils.metrics import MetricsLogger
     from .utils.timing import FrameStats
-
-    os.makedirs(args.out, exist_ok=True)
-    stats = FrameStats()
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        pending = []
-        for i in range(args.frames):
-            state, img = frame(state)
-            host = img.cpu().numpy()  # waits for the frame
-            pending.append(pool.submit(write_png,
-                                       os.path.join(args.out, f"frame_{i:05d}.png"), host))
-            if len(pending) > 4:
-                pending.pop(0).result()
-            stats.tick()
-            if i == 0:
-                print(f"first frame: {time.perf_counter() - t0:.1f}s (builds the CUDA "
-                      "kernels on first use)")
-        for f in pending:
-            f.result()
-    s = stats.stats
-    print(f"{args.frames} frames -> {args.out} (avg {s['avg_ms']:.2f} ms/frame after the "
-          f"first, min {s['min_ms']:.2f} max {s['max_ms']:.2f}, incl. PNG writes) -> "
-          f"{n * substeps * s['fps'] / 1e6:.1f}M particle-steps/s with render on {device}")
-    return state
-
-
-def _render_2d_loop(args, scene, device) -> None:
-    """The 2D frame loop (mpm_tpu/__main__.py's _render_2d_loop): step, draw
-    the live slots with render_2d at 8 pixels a cell on the device, u8 to
-    the host, PNG."""
-    from .render import bucket_frame_2d, frame_to_u8
 
     n = scene.state.num_particles
     substeps = args.substeps or scene.config.substeps
-    step, state, _ = build(scene, args.mode, "off", substeps)
-    res2 = scene.config.grid_res
-    print(f"scene={scene.name} N={n} grid={res2} mode={args.mode} 2D frames "
-          f"{res2[0] * 8}x{res2[1] * 8} device={device}")
+    os.makedirs(args.out, exist_ok=True)
+    metrics = MetricsLogger(path=args.metrics)
+    stats = FrameStats()
 
-    def frame(state):
-        state = step(state, scene.fluid, ())
+    def host_side(host, event, hud_stats, idx):
+        if event is not None:
+            event.synchronize()
+        img = host.numpy()
+        if args.hud:
+            from .render.hud import burn_in_hud
+
+            img = burn_in_hud(img, hud_stats, extra=f"N={n}")
+        write_png(os.path.join(args.out, f"frame_{idx:05d}.png"), img)
+
+    copier = torch.cuda.Stream(device) if device.type == "cuda" else None
+    t0 = time.perf_counter()
+    frames = 0
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        pending = []
+
+        def flush(host, event, idx):
+            # the HUD reads a copy of the stats as they stand when the frame
+            # is handed over: the loop goes on adding to its own
+            pending.append(pool.submit(host_side, host, event, copy.deepcopy(stats), idx))
+            if len(pending) > 4:
+                pending.pop(0).result()
+
+        prev = None
+        for i in range(args.frames):
+            if keys is not None and keys.quit:
+                print(f"fly camera: quit at frame {i}")
+                break
+            td0 = time.perf_counter()
+            state, img = frame(state, i)
+            host, done, copied = _to_host(img, copier)
+            th0 = time.perf_counter()
+            if prev is not None:
+                flush(*prev)
+            host_s = time.perf_counter() - th0
+            if done is not None:
+                done.synchronize()
+            if i > 0:  # the first frame's device time is the kernels' build
+                stats.split(time.perf_counter() - td0, host_s)
+            prev = (host, copied, i)
+            stats.tick()
+            frames += 1
+            if i == 0:
+                first_s = time.perf_counter() - t0
+                print(f"first frame: {first_s:.1f}s (builds the CUDA kernels on first use)")
+                metrics.log("compile", seconds=round(first_s, 3), scene=scene.name,
+                            mode=args.mode, n=n)
+            elif args.metrics:
+                s_ = stats.stats
+                metrics.log("frame", i=i, last_ms=round(s_["last_ms"], 3),
+                            dev_ms=round(s_["dev_ms"], 3), host_ms=round(s_["host_ms"], 3))
+            _checkpoint(args, i, state, scene, win)
+        if keys is not None:
+            keys.close()  # restore the terminal before the summary
+        if prev is not None:
+            flush(*prev)
+        for f in pending:
+            f.result()
+    s = stats.stats
+    print(f"{frames} frames -> {args.out} (avg {s['avg_ms']:.2f} ms/frame after the "
+          f"first, min {s['min_ms']:.2f} max {s['max_ms']:.2f}, incl. PNG writes; dev "
+          f"{s['dev_ms']:.2f} ms | host {s['host_ms']:.2f} ms) -> "
+          f"{n * substeps * s['fps'] / 1e6:.1f}M particle-steps/s with render on {device}")
+    _log_counters(metrics, state)
+    metrics.log("summary", frames=frames, avg_ms=round(s["avg_ms"], 2),
+                dev_ms=round(s["dev_ms"], 2), host_ms=round(s["host_ms"], 2))
+    metrics.close()
+    return state
+
+
+def _render_2d_loop(args, scene, step, state, device, fluid_fn) -> None:
+    """The 2D frame loop (mpm_tpu/__main__.py's _render_2d_loop): step with
+    the frame's fluid and interactions, draw the live slots with render_2d
+    at 8 pixels a cell on the device, u8 to the host, HUD, PNG."""
+    from .render import bucket_frame_2d, frame_to_u8
+
+    inter0, inter_fn = _parse_interactions(args, scene.config)
+    res2 = scene.config.grid_res
+    print(f"scene={scene.name} N={scene.state.num_particles} grid={res2} mode={args.mode} "
+          f"2D frames {res2[0] * 8}x{res2[1] * 8} device={device}"
+          + (f" interactions={len(inter0)}" if inter0 else ""))
+
+    def frame(state, i):
+        state = step(state, fluid_fn(i), inter_fn(i))
         return state, frame_to_u8(bucket_frame_2d(state, res2))
 
-    state = _write_frames(args, frame, state, n, substeps, device)
+    state = _write_frames(args, frame, state, scene, None, device)
     _print_counters(state)
     print("kernel launches: " + " ".join(f"{k}={v}" for k, v in kernel_launches().items()))
 
@@ -387,6 +756,12 @@ def cmd_info(args) -> None:
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
+    if args.cmd != "info":
+        if args.mode in ("reference", "binned"):
+            raise SystemExit(f"--mode {args.mode} is still to port (ROADMAP.md, queue 1, "
+                             "items 7 and 8)")
+        if args.mode == "pallas":  # the JAX package's name of the kernel path
+            args.mode = "cuda"
     {"run": cmd_run, "render": cmd_render, "info": cmd_info}[args.cmd](args)
 
 

@@ -56,6 +56,17 @@ def cell_top(x: torch.Tensor, n: float) -> torch.Tensor:
     return x + n - CFL_EPS
 
 
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """fminf(fmaxf(x, lo), hi), as the kernels clamp: a NaN x gives lo,
+    where torch.clamp would keep the NaN. So a particle whose position
+    went NaN is clamped into the domain and migrates like any other, its
+    NaN left in vel and C, in the plain engine and the kernels alike (the
+    JAX engine keeps the NaN in pos and loses the particle at migration,
+    uncounted)."""
+    lo, hi = (v if torch.is_tensor(v) else x.new_tensor(v) for v in (lo, hi))
+    return torch.fmin(torch.fmax(x, lo), hi)
+
+
 @dataclasses.dataclass(frozen=True)
 class Slab:
     """Where a bucket state's arrays sit in an x-slab decomposition
@@ -364,8 +375,7 @@ def advect_tail(state: BucketState, vel: torch.Tensor, Cmat: torch.Tensor,
     center = cell_coords(config, dev, x0=slab.x0) + 0.5
     pos = state.pos + vel * fp.dt
     res = torch.tensor(config.dres, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
-    pos = torch.minimum(torch.clamp(pos, min=config.clamp_lo),
-                        res - config.clamp_hi_offset)
+    pos = _clip(pos, config.clamp_lo, res - config.clamp_hi_offset)
 
     vel = apply_interactions(pos, vel, interactions)
 
@@ -380,7 +390,7 @@ def advect_tail(state: BucketState, vel: torch.Tensor, Cmat: torch.Tensor,
     # CFL bucket clamp: a particle faster than one cell per substep would
     # leave its bucket's +-1-cell migration range; clamp it and count it
     cell = center[:, None, :] - 0.5
-    pos_cfl = torch.minimum(torch.maximum(pos, cell - 1.0), cell_top(cell, 2.0))
+    pos_cfl = _clip(pos, cell - 1.0, cell_top(cell, 2.0))
     moved = occ & torch.any(pos_cfl != pos, dim=0)
     pos = pos_cfl
 
@@ -428,7 +438,7 @@ def reject_overflow(state: BucketState, config: SimConfig, axis: int,
     stride = strides(config)[axis]
     coord = cell_coords(config, state.device, x0=slab.x0)[axis]
     gate = _counted(config, slab, state.device)
-    delta = torch.clamp(torch.floor(state.pos[axis]) - coord[None, :], -1.0, 1.0)
+    delta = _clip(torch.floor(state.pos[axis]) - coord[None, :], -1.0, 1.0)
     occ = state.mass > 0
 
     occ0 = occ.sum(dim=0, dtype=torch.int32)  # [C]
@@ -455,8 +465,7 @@ def reject_overflow(state: BucketState, config: SimConfig, axis: int,
         rej_ceil = movr & band[None, :] & ~rej
         rej = rej | rej_ceil
         ceiling = ceiling + _count(rej_ceil, gate)
-    pos_ax = torch.minimum(torch.maximum(state.pos[axis], coord[None, :]),
-                           cell_top(coord[None, :], 1.0))
+    pos_ax = _clip(state.pos[axis], coord[None, :], cell_top(coord[None, :], 1.0))
     new_pos = state.pos.clone()
     new_pos[axis] = torch.where(rej, pos_ax, state.pos[axis])
     return state.replace(pos=new_pos,
@@ -475,7 +484,7 @@ def _migrate_axis(state: BucketState, config: SimConfig, axis: int,
 
     state = reject_overflow(state, config, axis, slab)
 
-    delta = torch.clamp(torch.floor(state.pos[axis]) - coord[None, :], -1.0, 1.0)
+    delta = _clip(torch.floor(state.pos[axis]) - coord[None, :], -1.0, 1.0)
     occ = state.mass > 0
 
     # candidates arriving at cell c moving by `s` come from cell c - s

@@ -190,7 +190,17 @@ class YWindow:
             _resize(s, bucketed.slab_config(old, loc), bucketed.slab_config(new, loc), a * loc)
             for a, s in enumerate(state.slabs)])
 
+    def _state_wy(self, state) -> int:
+        """The window height of a state's arrays."""
+        nx, _, nz = self.true_config.grid_res
+        if self.mesh is None:
+            return state.mass.shape[-1] // (nx * nz)
+        return state.slabs[0].mass.shape[-1] // (nx // self.mesh.n * nz)
+
     def step(self, state, fp: FluidParams, interactions: Sequence[Interaction] = ()):
+        # a state of an earlier window (a guard's rollback snapshot) steps
+        # at its own height, and the window follows it from there
+        self.wy = self._state_wy(state)
         state = self._frame_fn(self.wy)(state, fp, interactions)
         hits = self._observe(state)
         ny = self.true_config.grid_res[1]

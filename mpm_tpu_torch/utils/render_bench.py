@@ -51,14 +51,16 @@ def recipe_1080(scene_config, state, grid_res, view) -> RenderConfig:
 def frame_windows(frame, state, fluid, view, bg, frames: int, windows: int):
     """`windows` fenced windows of `frames` frames of make_full_frame_step's
     `frame`; each u8 frame is copied to pinned host memory as it is made.
-    Returns (state, last u8 frame, seconds per window)."""
+    `view`: a view, or a function of the frame's index in its window that
+    makes one (a moving camera). Returns (state, last u8 frame, seconds per
+    window)."""
     img = host = None
     times = []
     for _ in range(windows):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(frames):
-            state, img = frame(state, fluid, (), view, bg)
+        for i in range(frames):
+            state, img = frame(state, fluid, (), view(i) if callable(view) else view, bg)
             if host is None:
                 host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
             host.copy_(img, non_blocking=True)

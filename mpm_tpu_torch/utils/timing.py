@@ -59,10 +59,18 @@ def fenced_windows(step: Callable, state, fluid, calls: int, windows: int = 3):
 
 class FrameStats:
     """Rolling frame-time window: avg/min/max/last over `window` frames
-    (the reference debug overlay's 150-frame history, debug_menu.gd:27)."""
+    (the reference debug overlay's 150-frame history, debug_menu.gd:27).
+
+    Optionally tracks a device/host split per frame (the reference's
+    separate CPU and GPU frame times, debug_menu.gd:132,383,403): callers
+    report `split(dev_s, host_s)`, dev the fenced device work of a frame and
+    host the frame loop's own host work; `stats` then carries their
+    dev_ms/host_ms averages."""
 
     def __init__(self, window: int = 150):
         self.times = collections.deque(maxlen=window)
+        self.dev_times = collections.deque(maxlen=window)
+        self.host_times = collections.deque(maxlen=window)
         self._last_t: float | None = None
 
     def tick(self) -> None:
@@ -71,16 +79,26 @@ class FrameStats:
             self.times.append(now - self._last_t)
         self._last_t = now
 
+    def split(self, dev_s: float, host_s: float) -> None:
+        self.dev_times.append(dev_s)
+        self.host_times.append(host_s)
+
     @property
     def stats(self) -> dict:
         if not self.times:
             return {"avg_ms": 0.0, "min_ms": 0.0, "max_ms": 0.0, "last_ms": 0.0,
-                    "fps": 0.0}
+                    "fps": 0.0, "dev_ms": 0.0, "host_ms": 0.0}
         arr = np.asarray(self.times)
-        return {
+        out = {
             "avg_ms": float(arr.mean() * 1e3),
             "min_ms": float(arr.min() * 1e3),
             "max_ms": float(arr.max() * 1e3),
             "last_ms": float(arr[-1] * 1e3),
             "fps": float(1.0 / arr.mean()),
+            "dev_ms": 0.0,
+            "host_ms": 0.0,
         }
+        if self.dev_times:
+            out["dev_ms"] = float(np.mean(self.dev_times) * 1e3)
+            out["host_ms"] = float(np.mean(self.host_times) * 1e3)
+        return out

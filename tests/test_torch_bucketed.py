@@ -249,3 +249,22 @@ def test_kernels_refuse_configs_outside_the_slice(kw):
     # splat emission is in the slice now; it needs the render scalars
     with pytest.raises(ValueError, match="render_scals"):
         kf.g2p_migrate(None, None, None, None, emit_splats=True)
+
+
+def test_nan_position_is_clamped_and_kept():
+    """A live slot whose position is NaN: the plain engine clamps it into
+    the domain as the kernels' fminf/fmaxf do (tb._clip) and keeps the
+    particle; the NaN lives on in vel and C and spreads to the neighbours
+    through the grid, and no particle goes missing or counts as lost."""
+    _, tcfg, _, t, _, _ = _small()
+    state = tb.from_simstate(t.state, tcfg)
+    n0 = int((state.mass > 0).sum())
+    k, c = np.unravel_index(int(torch.argmax(state.mass)), tuple(state.mass.shape))
+    pos = state.pos.clone()
+    pos[0, int(k), int(c)] = float("nan")
+    state = state.replace(pos=pos)
+    for _ in range(2):
+        state = tb.substep(state, tcfg, t.fluid)
+    assert bool(state.pos.isfinite().all())
+    assert int((~state.vel.isfinite()).any(dim=0).sum()) > 1
+    assert int((state.mass > 0).sum()) == n0 and int(state.lost) == 0

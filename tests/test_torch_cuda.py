@@ -695,6 +695,33 @@ def test_kernel_f_migration_stress_matches_plain(dev, case):
         assert int(want.ceiling) > 0
 
 
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_kernel_f_matches_plain_on_a_nan_position(dev, storage):
+    """A live slot whose position is NaN, and the grid kernel P's plain
+    version makes from that state: kernel F clamps the position into the
+    domain with fminf/fmaxf and keeps the particle, its NaN left in vel
+    and C, and so does the plain version (ops/bucketed._clip). Every field
+    bit for bit, NaN where NaN; no particle lost."""
+    config, fluid, state = _scene(dev, storage)
+    state = _warm(state, config, fluid)
+    k, c = np.unravel_index(int(torch.argmax(state.mass)), tuple(state.mass.shape))
+    pos = state.pos.clone()
+    pos[0, int(k), int(c)] = float("nan")
+    state = state.replace(pos=pos)
+    grid = kp.p2g_update_plain(state, config, fluid)
+    got = kf.g2p_migrate(state, grid, config, fluid)
+    want = kf.g2p_migrate_plain(state, grid, config, fluid)
+    for f in FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.is_floating_point():
+            assert torch.equal(a.isnan(), b.isnan()), f
+            a, b = (torch.where(x.isnan(), 0.0, x) for x in (a, b))
+        assert torch.equal(a, b), f
+    assert bool(want.pos.isfinite().all()) and not bool(want.vel.isfinite().all())
+    assert int((want.mass > 0).sum()) == int((state.mass > 0).sum())
+    assert int(want.lost) == int(state.lost)
+
+
 def test_kernel_f_shard_mode_stress_matches_plain(dev):
     """Kernel F's shard mode on each of 4 padded slabs under a random grid
     velocity: the counters count the slab's own planes only, bit for bit

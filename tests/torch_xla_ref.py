@@ -49,6 +49,9 @@ FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "
 STORAGE = {"f32": {}, "bf16": {"storage_dtype": "bfloat16"}, "fixed": {"fixed_point": True},
            "full": {"eos_power_static": 7.0}}
 SCENE = dict(grid_res=16, box=8.0, spacing=0.8)
+# the "orbit" case's CLI flags: the orbit sphere moves every substep (one
+# frame of one substep each), dt overridden, gravity flipped from frame 2
+ORBIT_ARGS = dict(interact=[], orbit_sphere=True, fluid=["dt=0.15"], flip_gravity_at=2)
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -57,8 +60,11 @@ def xla_substeps(states: dict, n: int) -> dict:
     (case -> numpy arrays by field, bf16 fields as float32), all computed
     without FMA in one subprocess; the results likewise. A case is a
     storage of STORAGE, or the f32 scene in the air window (arrays y in
-    [0, 16) of a (16, 32, 16) domain, "windowed") or with a sphere
-    interaction ("sphere"), tests/test_torch_bucketed.py's."""
+    [0, 16) of a (16, 32, 16) domain, "windowed"), with a sphere
+    interaction ("sphere"), tests/test_torch_bucketed.py's, or with the
+    run-time surface of the JAX package's CLI ("orbit": substep i takes
+    frame i's fluid and interactions under ORBIT_ARGS, through its
+    `_apply_fluid_overrides` and `_parse_interactions`)."""
     with tempfile.TemporaryDirectory() as tmp:
         src, dst = Path(tmp, "in.npz"), Path(tmp, "out.npz")
         np.savez(src, **{f"{c}.{f}": a for c, st in states.items() for f, a in st.items()})
@@ -126,9 +132,12 @@ def assert_equal_to_xla(got, want: dict) -> None:
 
 
 def _main(argv) -> None:
+    import argparse
+
     import jax
     import jax.numpy as jnp
 
+    from mpm_tpu.__main__ import _apply_fluid_overrides, _parse_interactions
     from mpm_tpu.models.scenes import fluid_3d
     from mpm_tpu.ops import bucketed as jb
     from mpm_tpu.ops.interact import Interaction
@@ -148,9 +157,17 @@ def _main(argv) -> None:
             vc = jnp.bfloat16 if case == "bf16" else jnp.float32
             b = jb.BucketState(*(jnp.asarray(z[f"{case}.{f}"]).astype(vc) if f in ("vel", "C")
                                  else jnp.asarray(z[f"{case}.{f}"]) for f in FIELDS))
-            step = jax.jit(lambda b, f, cfg=cfg, inter=inter: jb.substep(b, cfg, f, inter))
-            for _ in range(n):
-                b = step(b, j.fluid)
+            if case == "orbit":
+                args = argparse.Namespace(**ORBIT_ARGS)
+                fluid_fn = _apply_fluid_overrides(args, j.fluid)[1]
+                inter_fn = _parse_interactions(args, cfg)[1]
+                step = jax.jit(lambda b, f, it, cfg=cfg: jb.substep(b, cfg, f, it))
+                for i in range(n):
+                    b = step(b, fluid_fn(i), inter_fn(i))
+            else:
+                step = jax.jit(lambda b, f, cfg=cfg, inter=inter: jb.substep(b, cfg, f, inter))
+                for _ in range(n):
+                    b = step(b, j.fluid)
             for f in FIELDS:
                 a = getattr(b, f)
                 out[f"{case}.{f}"] = np.asarray(a.astype(jnp.float32) if a.dtype == jnp.bfloat16
