@@ -29,8 +29,14 @@ guard against the bare step and rolls a poisoned run back, runs the
 orbit-camera render loop (each frame equal to the plain chain's), runs the
 CLI (`--shards 1`, the render flags, and the run-time flags: spheres,
 fluid overrides, metrics, checkpoints and resume, the guard, the fly and
-orbit cameras and the HUD), and times each kernel beside its plain version
-and its roofline bound. Every main path runs with the launch counts set to 0 just before it
+orbit cameras and the HUD), runs configs outside the kernels' envelope
+through mode="cuda" on the plain engine ([route]), holds kernel F and
+sim2d with 12 spheres against their plain versions ([inter-many]), runs
+the 2D pair on bf16 vel/C ([bf16-2d]), the oracle on the golden replay and
+against the binned engine at full size ([oracle]), the binned engine
+([binned]), the sort-based sharded step on 4 slabs ([sorted-shard]) and
+the CLI's reference, binned and legacy_quad modes ([cli-modes]), and
+times each kernel beside its plain version and its roofline bound. Every main path runs with the launch counts set to 0 just before it
 and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
@@ -1313,6 +1319,381 @@ def phase_sharded_render(dev, smi: str, state, cfgw, pool, view) -> None:
           f"fluid on {share:.3f} of the crop; launches {launches} [{smi}]")
 
 
+def phase_route(dev, smi: str) -> None:
+    """[route]: make_step(mode="cuda") against mode="bucketed", 3 substeps
+    bit for bit. A fixed-point 2D config (dam_break_2d, K=8), which the JAX
+    package runs on its XLA engine, takes the plain engine and launches no
+    kernel. K > 32 takes the kernels' 64-bit slot masks and launches them:
+    fluid_3d at full size with K=40, a dense fluid_3d (16^3, spacing 0.3:
+    up to 64 particles a cell) with K=64, dam_break_2d with K=40. K=72 and
+    clamps into the edge planes raise NotImplementedError; a windowed
+    config outside the envelope raises ValueError."""
+    out = []
+    d2 = dam_break_2d(device=dev)
+    dense = fluid_3d(grid_res=16, box=8.0, spacing=0.3, device=dev)
+    cases = ((d2, dict(fixed_point=True, bin_capacity=8), "dam_break_2d fixed", ()),
+             (fluid_3d(device=dev), dict(bin_capacity=40), "fluid_3d K=40",
+              ("p2g_update", "g2p_migrate")),
+             (dense, dict(bin_capacity=64), "dense fluid_3d K=64",
+              ("p2g_update", "g2p_migrate")),
+             (d2, dict(bin_capacity=40), "dam_break_2d K=40", ("sim2d", "migrate2d")))
+    for sc, kw, label, kernels in cases:
+        cfg = sc.config.replace(**kw)
+        b = bucketed.from_simstate(sc.state, cfg)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = make_step(cfg, mode="cuda", substeps=3)(b, sc.fluid)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernel_launches().items() if v}
+        want = make_step(cfg, mode="bucketed", substeps=3)(b, sc.fluid)
+        assert_bit_equal(got, want, f"[route] {label} through mode='cuda'")
+        if set(launched) != set(kernels) or any(launched[k] != 3 for k in kernels):
+            raise AssertionError(f"[route] {label}: launched {launched}, want 3 each of "
+                                 f"{kernels or 'none'}")
+        fill = int((b.mass > 0).sum(0).max())
+        out.append(f"{label} ({cuda_step.route(cfg)}, fullest cell {fill}): 3 substeps "
+                   f"bit-equal to bucketed, lost {int(got.lost)}, launches {launched or 'none'}")
+    for kw in (dict(bin_capacity=72), dict(clamp_lo=0.5)):
+        cfg = dense.config.replace(**kw)
+        try:
+            make_step(cfg, mode="cuda", substeps=1)(bucketed.from_simstate(dense.state, cfg),
+                                                     dense.fluid)
+        except NotImplementedError:
+            out.append(f"{kw} raises NotImplementedError")
+        else:
+            raise AssertionError(f"[route] {kw} did not raise under mode='cuda'")
+    wcfg = d2.config.replace(fixed_point=True,
+                             domain_res=(d2.config.grid_res[0], 2 * d2.config.grid_res[1]))
+    try:
+        make_step(wcfg, mode="cuda", substeps=1)(bucketed.from_simstate(d2.state, wcfg),
+                                                  d2.fluid)
+    except ValueError as e:
+        out.append(f"windowed fixed-point 2D raises ValueError ({str(e)[:48]}...)")
+    else:
+        raise AssertionError("[route] a windowed config outside the envelope did not raise")
+    phase("route", "; ".join(out) + f" [{smi}]")
+
+
+def spheres(lo, hi, n: int, seed: int) -> tuple:
+    """n seeded spheres with centres in the box [lo, hi) (one bound a
+    dimension), both kinds: the sphere's constant push (strength 0.1-0.5)
+    and the mouse's radius / |d| falloff (0.02-0.1); the sixth inactive."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        c = rng.uniform(lo, hi).astype(np.float32).tolist()
+        make, s_lo, s_hi = ((Interaction.sphere, 0.1, 0.5) if i % 2
+                            else (Interaction.mouse, 0.02, 0.1))
+        out.append(make(c, radius=float(rng.uniform(3.0, 6.0)),
+                        strength=float(rng.uniform(s_lo, s_hi)), active=0.0 if i == 5 else 1.0))
+    return tuple(out)
+
+
+def phase_inter_many(dev, smi: str, state, cfgw, win, pool) -> tuple[float, float]:
+    """[inter-many]: kernel F on the settled pool window and sim2d on
+    bench2d, each with 12 spheres read from a device array, bit-equal to
+    plain; 100 pool substeps with the 12 spheres, lost 0; `run` with nine
+    --interact flags. Returns F's and sim2d's max abs error."""
+    inter3 = spheres([8.0, 4.0, 8.0], [56.0, 14.0, 56.0], 12, 5)
+    grid = kp.p2g_update_plain(state, cfgw, pool.fluid)
+    got = kf.g2p_migrate(state, grid, cfgw, pool.fluid, inter3)
+    want = kf.g2p_migrate_plain(state, grid, cfgw, pool.fluid, inter3)
+    torch.cuda.synchronize()
+    assert_bit_equal(got, want, "kernel F with 12 spheres")
+    bare = kf.g2p_migrate_plain(state, grid, cfgw, pool.fluid)
+    pushed = int((bare.vel != want.vel).any(dim=0).sum())
+    err_f = max_err(got.vel, want.vel)
+    del grid, got, want, bare
+    b2 = benchmark_scene_2d(device=dev)
+    s2 = bucketed.from_simstate(b2.state, b2.config)
+    for _ in range(20):
+        s2 = bucketed.substep(s2, b2.config, b2.fluid)
+    inter2 = spheres([40.0, 40.0], [216.0, 216.0], 12, 6)
+    got2 = k2d.sim2d(s2, b2.config, b2.fluid, inter2)
+    want2 = k2d.sim2d_plain(s2, b2.config, b2.fluid, inter2)
+    torch.cuda.synchronize()
+    assert_bit_equal(got2, want2, "sim2d with 12 spheres")
+    pushed2 = int((k2d.sim2d_plain(s2, b2.config, b2.fluid).vel != want2.vel).any(dim=0).sum())
+    err_2d = max_err(got2.vel, want2.vel)
+    lost0, hits0 = int(state.lost), win.interference
+    reset_launches()
+    s = state
+    for _ in range(10):
+        s = win.step(s, pool.fluid, inter3)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if int(s.lost) != lost0 or not state_is_finite(s):
+        raise AssertionError(f"[inter-many] 100 substeps: lost {int(s.lost) - lost0} or "
+                             "non-finite")
+    if win.interference != hits0:
+        # the window's certificate: a windowed run equals the full grid's
+        raise AssertionError(f"[inter-many] window interference "
+                             f"{win.interference - hits0} in 100 substeps")
+    if min(launches["p2g_update"], launches["g2p_migrate"]) <= 0:
+        raise AssertionError(f"[inter-many] the pool substeps did not launch P and F: {launches}")
+    cmd = [sys.executable, "-m", "mpm_tpu_torch", "run", "fluid_3d", "--frames", "3",
+           "--window", "auto"]
+    for i in range(9):
+        cmd += ["--interact", f"sphere={8 + 6 * i},12,32,5,0.5"]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if (res.returncode != 0 or "interactions=9" not in res.stdout
+            or not re.search(r"^lost: 0 ", res.stdout, re.M)):
+        raise AssertionError(f"run with nine --interact failed (rc {res.returncode}):\n"
+                             f"{res.stdout}\n{res.stderr}")
+    phase("inter-many", f"kernel F, settled pool window {cfgw.grid_res} K=8 bf16, 12 spheres: "
+          f"bit-equal to plain, {pushed} slots pushed; sim2d, bench2d {b2.config.grid_res} K=4, "
+          f"12 spheres: bit-equal, {pushed2} slots pushed; 100 pool substeps with the 12: lost 0, "
+          f"window interference {win.interference - hits0} wy={win.wy}, "
+          f"P={launches['p2g_update']} F={launches['g2p_migrate']}; run "
+          f"fluid_3d with nine --interact: rc 0 | "
+          + " | ".join(res.stdout.strip().splitlines()[-3:-1]) + f" [{smi}]")
+    return err_f, err_2d
+
+
+def phase_bf16_2d(dev, smi: str, time_pair) -> tuple[float, dict]:
+    """[bf16-2d]: the 2D benchmark with bf16 vel/C (100,000 particles,
+    256^2, K=4): sim2d and migrate2d bit-equal to plain on three perturbed
+    states; bench2d's protocol (warm 100 substeps, 3 windows of 1,000,
+    lost 0); both kernels timed. Returns the largest error and the launch
+    counts of the main path."""
+    b2 = benchmark_scene_2d(device=dev)
+    cfg = b2.config.replace(storage_dtype="bfloat16")
+    n2 = b2.state.num_particles
+    s = bucketed.from_simstate(b2.state, cfg)
+    if s.vel.dtype != torch.bfloat16:
+        raise AssertionError("[bf16-2d] the state does not store bf16 vel/C")
+    for _ in range(20):
+        s = bucketed.substep(s, cfg, b2.fluid)
+    err = 0.0
+    deferred = []
+    for seed in (1, 2, 3):
+        st = perturbed(s, cfg, seed)
+        got = k2d.sim2d(st, cfg, b2.fluid)
+        want = k2d.sim2d_plain(st, cfg, b2.fluid)
+        assert_bit_equal(got, want, f"sim2d bf16, perturbed state {seed}")
+        gm = k2d.migrate2d(want, cfg)
+        wm = k2d.migrate2d_plain(want, cfg)
+        torch.cuda.synchronize()
+        assert_bit_equal(gm, wm, f"migrate2d bf16, perturbed state {seed}")
+        err = max(err, max_err(got.vel, want.vel), max_err(gm.vel, wm.vel))
+        deferred.append(int(wm.deferred))
+    step = make_step(cfg, mode="cuda", substeps=5)
+    for _ in range(20):
+        s = step(s, b2.fluid)
+    torch.cuda.synchronize()
+    reset_launches()
+    s, t2 = fenced_windows(step, s, b2.fluid, WINDOW_CALLS)
+    launches = kernel_launches()
+    if int(s.lost) != 0 or not bool(torch.isfinite(s.pos).all()):
+        raise AssertionError(f"[bf16-2d] lost {int(s.lost)} or non-finite positions")
+    if min(launches["sim2d"], launches["migrate2d"]) <= 0 or launches["p2g_update"]:
+        raise AssertionError(f"[bf16-2d] did not run on the 2D kernels alone: {launches}")
+    pps = sorted(1000 * n2 / t for t in t2)
+    phase("bf16-2d", f"{n2} particles, grid {cfg.grid_res}, K={cfg.bin_capacity}, bf16 vel/C: "
+          f"sim2d and migrate2d bit-equal to plain on 3 perturbed states (deferred {deferred}); "
+          f"windows {[round(t, 4) for t in t2]} s per 1000 substeps -> best "
+          f"{pps[-1] / 1e6:.1f}M median {pps[1] / 1e6:.1f}M particle-steps/s; lost=0 "
+          f"deferred={int(s.deferred)} launches={launches} [{smi}]")
+    sm = k2d.sim2d(s, cfg, b2.fluid)
+    time_pair("sim2d_bf16", lambda: k2d.sim2d(s, cfg, b2.fluid),
+              lambda: k2d.sim2d_plain(s, cfg, b2.fluid), f"bench2d {cfg.grid_res} K=4 bf16",
+              roofline.sim2d_work(s, cfg), device=True)
+    time_pair("migrate2d_bf16", lambda: k2d.migrate2d(sm, cfg),
+              lambda: k2d.migrate2d_plain(sm, cfg), f"bench2d {cfg.grid_res} K=4 bf16",
+              roofline.migrate_work(sm, cfg), device=True)
+    # the float32 pair's device time on the same particles, in this call
+    cf = b2.config
+    s32 = s.replace(vel=s.vel.float(), C=s.C.float())
+    sm32 = k2d.sim2d(s32, cf, b2.fluid)
+    phase("bf16-2d", f"device ms a call, f32 storage beside: sim2d "
+          f"{device_ms(lambda: k2d.sim2d(s32, cf, b2.fluid)):.4f}, migrate2d "
+          f"{device_ms(lambda: k2d.migrate2d(sm32, cf)):.4f} [{smi}]")
+    return err, {"sim2d_bf16": launches["sim2d"], "migrate2d_bf16": launches["migrate2d"]}
+
+
+def ulp_close(got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
+    """The largest |got - want| beyond max(atol, one float32 ulp of want);
+    0 when every value is within it."""
+    ulp = torch.abs(want) * 2.0 ** -23
+    excess = (got - want).abs() - torch.clamp_min(ulp, atol)
+    return float(torch.clamp_min(excess, 0).max())
+
+
+def phase_oracle(dev, smi: str) -> None:
+    """[oracle]: the golden 2D replay through the oracle on the card (frames
+    1, 5, 10 within 2e-3 of the fixture); one oracle substep of fluid_3d at
+    full size (157,464 particles, 64^3) against the binned engine: ids
+    equal, vel/C within 1e-5, pos within 1e-6 or one float32 ulp of the
+    value (the oracle adds each cell's run in float32, the binned engine in
+    float64: their sums round apart by an ulp, which moves a position's last
+    bit once in a few hundred)."""
+    d2 = dam_break_2d(device=dev)
+    data = np.load(GOLDEN_2D)
+    step = make_step(d2.config, mode="reference")
+    st, errs = d2.state, []
+    t0 = time.perf_counter()
+    for frame in range(1, 11):
+        st = step(st, d2.fluid)
+        if frame in (1, 5, 10):
+            errs.append(float(np.abs(st.by_id().pos.cpu().numpy() - data[f"pos_f{frame}"]).max()))
+    gold_s = time.perf_counter() - t0
+    if not max(errs) <= 2e-3:
+        raise AssertionError(f"[oracle] golden replay on the card: {errs}")
+    sc = fluid_3d(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = make_step(sc.config, mode="reference", substeps=1)(sc.state, sc.fluid).by_id()
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    b = make_step(sc.config, mode="binned", substeps=1)(sc.state, sc.fluid).by_id()
+    if not torch.equal(a.ids, b.ids):
+        raise AssertionError("[oracle] fluid_3d: ids differ between oracle and binned")
+    dpos = float((a.pos - b.pos).abs().max())
+    npos = int((a.pos != b.pos).sum())
+    beyond = ulp_close(b.pos, a.pos, 1e-6)
+    dvc = max(max_err(a.vel, b.vel), max_err(a.C, b.C))
+    if beyond > 0 or not dvc <= 1e-5:
+        raise AssertionError(f"[oracle] fluid_3d oracle vs binned: pos {dpos} ({beyond} beyond "
+                             f"one ulp), vel/C {dvc}")
+    phase("oracle", f"golden 2D replay through the oracle on the card: max |pos - fixture| at "
+          f"frames 1, 5, 10 = {errs} (bar 2e-3), {gold_s:.2f} s for 50 substeps; fluid_3d "
+          f"{sc.state.num_particles} particles {sc.config.grid_res}, one substep, oracle "
+          f"{ref_ms:.1f} ms (first call) against binned: ids equal, max |dpos| {dpos:.3g} at "
+          f"{npos} of {a.pos.numel()} values, none beyond max(1e-6, 1 ulp); max |dvel|, |dC| "
+          f"{dvc:.3g} (bar 1e-5) [{smi}]")
+
+
+def phase_binned(dev, smi: str) -> None:
+    """[binned]: fluid_3d under make_step(mode="binned"): 100 substeps with
+    mass conserved and ids a permutation; 3 windows of 100 substeps beside
+    mode="cuda" on the same scene; fluid_3d_fixed_point binned bit-equal
+    across two runs."""
+    sc = fluid_3d(device=dev)
+    n = sc.state.num_particles
+    m0 = float(sc.state.mass.double().sum())
+    step = make_step(sc.config, mode="binned", substeps=10)
+    st = sc.state
+    for _ in range(10):
+        st = step(st, sc.fluid)
+    torch.cuda.synchronize()
+    if (float(st.mass.double().sum()) != m0 or not bool(torch.isfinite(st.pos).all())
+            or not torch.equal(torch.sort(st.ids).values,
+                               torch.arange(n, dtype=torch.int32, device=dev))):
+        raise AssertionError("[binned] 100 substeps: mass changed, non-finite or ids lost")
+    st, tb_ = fenced_windows(step, st, sc.fluid, 10)
+    cstep = make_step(sc.config, mode="cuda", substeps=10)
+    cs = cstep(bucketed.from_simstate(sc.state, sc.config), sc.fluid)
+    cs, tc = fenced_windows(cstep, cs, sc.fluid, 10)
+    if int(cs.lost) != 0:
+        raise AssertionError("[binned] the mode='cuda' run beside it lost particles")
+    pb = sorted(100 * n / t for t in tb_)
+    pc = sorted(100 * n / t for t in tc)
+    s4 = fluid_3d_fixed_point(device=dev)
+    fstep = make_step(s4.config, mode="binned", substeps=5)
+    o1, o2 = fstep(s4.state, s4.fluid), fstep(s4.state, s4.fluid)
+    for f in ("pos", "vel", "C", "ids"):
+        if not torch.equal(getattr(o1, f), getattr(o2, f)):
+            raise AssertionError(f"[binned] fixed point: two runs differ in {f}")
+    phase("binned", f"fluid_3d {n} particles {sc.config.grid_res}: 100 substeps, mass conserved "
+          f"exactly, ids a permutation; windows {[round(t, 4) for t in tb_]} s per 100 "
+          f"substeps -> best {pb[-1] / 1e6:.2f}M median {pb[1] / 1e6:.2f}M particle-steps/s; "
+          f"mode='cuda' beside it {[round(t, 4) for t in tc]} s -> best {pc[-1] / 1e6:.1f}M "
+          f"median {pc[1] / 1e6:.1f}M; fluid_3d_fixed_point binned, 5 substeps: two runs "
+          f"bit-equal [{smi}]")
+
+
+def phase_sorted_shard(dev, smi: str) -> None:
+    """[sorted-shard]: the sort-based sharded step on 4 slabs of the card
+    against the binned engine on fluid_3d at full size (2 calls of 2
+    substeps): ids equal, pos within 2e-3; the fixed-point scene bit-exact;
+    demo_sharded_step(4)."""
+    mesh = domain.SlabMesh.on(dev, SLABS)
+    sc = fluid_3d(device=dev)
+    sc = sc._replace(config=sc.config.replace(substeps=2))
+    n = sc.state.num_particles
+    out = []
+    for scene, calls, label in ((sc, 2, "fluid_3d"), (None, 2, "fluid_3d_fixed_point")):
+        if scene is None:
+            s4 = fluid_3d_fixed_point(device=dev)
+            scene = s4._replace(config=s4.config.replace(substeps=2))
+        m = scene.state.num_particles
+        sconf = domain.ShardConfig(n_shards=SLABS, local_capacity=m + 2 * 8192 + 64,
+                                   migration_capacity=8192)
+        state = domain.shard_scene(scene, sconf, mesh)
+        step = domain.make_sharded_step(scene.config, sconf, mesh, substeps=2)
+        ref = make_step(scene.config, mode="binned", substeps=2)
+        s_ref = scene.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            state = step(state, scene.fluid)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        for _ in range(calls):
+            s_ref = ref(s_ref, scene.fluid)
+        live, want = domain.gather_live(state), s_ref.by_id()
+        if live.num_particles != m or not torch.equal(live.ids, want.ids):
+            raise AssertionError(f"[sorted-shard] {label}: {live.num_particles} live of {m}, "
+                                 "or ids differ")
+        err = float((live.pos - want.pos).abs().max())
+        if scene is not sc:
+            if not (torch.equal(live.pos, want.pos) and torch.equal(live.vel, want.vel)):
+                raise AssertionError(f"[sorted-shard] {label}: not bit-exact ({err})")
+        elif not err <= 2e-3:
+            raise AssertionError(f"[sorted-shard] {label}: max |dpos| {err}")
+        out.append(f"{label} ({m}) {2 * calls} substeps in {shard_s:.3f} s: ids equal, "
+                   f"max |dpos| {err:.3g}" + (" (bit-exact)" if scene is not sc else ""))
+    domain.demo_sharded_step(SLABS, dev)
+    phase("sorted-shard", f"{SLABS} slabs of the card against binned: " + "; ".join(out)
+          + f"; demo_sharded_step({SLABS}) ok [{smi}]")
+    del n
+
+
+def phase_cli_modes(dev, smi: str) -> None:
+    """[cli-modes]: `run dam_break_2d --mode reference`, `run fluid_3d
+    --mode binned --frames 3`, `render fluid_3d --render-mode legacy_quad
+    --frames 3` (the bucket path, kernels P and F) and `render fluid_3d
+    --mode binned --sphere-render-ratio 0.5 --frames 3`: rc 0, no particle
+    lost, the frames unlike the background; ms a frame."""
+    from mpm_tpu_torch.render import default_view as dview
+
+    def run(args, label):
+        res = subprocess.run([sys.executable, "-m", "mpm_tpu_torch", *args], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        ok = re.search(r"^(lost: 0 |particles: \d+ finite: True)", res.stdout, re.M)
+        if res.returncode != 0 or not ok:
+            raise AssertionError(f"{label} failed (rc {res.returncode}):\n{res.stdout}\n"
+                                 f"{res.stderr}")
+        return res.stdout
+
+    out = []
+    o = run(["run", "dam_break_2d", "--mode", "reference", "--frames", "10"], "run reference")
+    out.append("run dam_break_2d --mode reference: "
+               + re.search(r"^frames=.*$", o, re.M).group(0).split(" -> ")[0])
+    o = run(["run", "fluid_3d", "--mode", "binned", "--frames", "3"], "run binned")
+    out.append("run fluid_3d --mode binned: "
+               + re.search(r"^frames=.*$", o, re.M).group(0).split(" -> ")[0])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_linear_") as tmp:
+        for label, args in (("legacy_quad", ["--render-mode", "legacy_quad"]),
+                            ("binned ratio 0.5", ["--mode", "binned", "--sphere-render-ratio",
+                                                  "0.5"])):
+            d = os.path.join(tmp, label.split()[0])
+            o = run(["render", "fluid_3d", "--frames", "3", "--width", "640", "--height", "360",
+                     "--out", d, *args], f"render {label}")
+            rc = RenderConfig(camera=Camera(width=640, height=360))
+            bg = frame_to_u8(background_for_view(rc, dview((64, 64, 64)), dev)[0]).cpu().numpy()
+            diffs = []
+            for f in sorted(os.listdir(d)):
+                img = read_png_rgb(os.path.join(d, f)).astype(np.int32)
+                diffs.append(int((np.abs(img - bg).max(axis=-1) > 20).sum()))
+            if len(diffs) != 3 or min(diffs) == 0:
+                raise AssertionError(f"render {label}: frames like the background {diffs}")
+            ms = re.search(r"avg ([0-9.]+) ms/frame", o).group(1)
+            out.append(f"render fluid_3d {label}: {ms} ms a frame, {diffs} pixels off the "
+                       "background")
+    phase("cli-modes", "; ".join(out) + f" [{smi}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -1337,6 +1718,7 @@ def main() -> None:
     # parallel/render.py:190-233): each equals its unsharded run bit for bit
     domain.demo_sharded_bucket_step(SLABS, dev)
     demo_sharded_render(SLABS, dev)
+    phase_route(dev, smi)
     phase("shard-demo", f"demo_sharded_bucket_step({SLABS}) (f32, windowed, bf16) and "
           f"demo_sharded_render({SLABS}) (whole and windowed): lost 0, equal to their "
           "unsharded runs bit for bit")
@@ -1585,6 +1967,8 @@ def main() -> None:
     # camera, each from the settled state (the window follows its height)
     cfgw = win.config
     err_f = max(err_f, phase_interactions(dev, smi, state, cfgw, win, pool))
+    err_f_many, err_2d_many = phase_inter_many(dev, smi, state, cfgw, win, pool)
+    err_f = max(err_f, err_f_many)
     phase_guard(dev, smi, state, win, pool)
     phase_moving_camera(dev, smi, state, cfgw, pool, view)
     del state
@@ -1606,6 +1990,11 @@ def main() -> None:
     del ds
 
     err_sim2d, err_mig2d, launches2d = phase_2d(dev, smi, time_pair)
+    err_sim2d = max(err_sim2d, err_2d_many)
+    err_bf16, launches_bf16 = phase_bf16_2d(dev, smi, time_pair)
+    phase_oracle(dev, smi)
+    phase_binned(dev, smi)
+    phase_sorted_shard(dev, smi)
     errs_new, launches_new = phase_per_pass_fixed(dev, smi, time_pair)
     launches_shard, s5, cfg5, true_cfg5, fluid5 = run_config5(dev, smi)
     phase_shard_times(s5, cfg5, fluid5, time_pair)
@@ -1700,6 +2089,7 @@ def main() -> None:
         run_cli(["fluid_3d", "--cubemap", faces], "cli-render-cubemap",
                 os.path.join(tmp, "c"), 2, ("g2p_migrate_emit", "blur_depth"))
     phase_cli_runtime()
+    phase_cli_modes(dev, smi)
 
     # launches: each kernel's count from the main path that runs it (the
     # pool for P and F, the 640x360 render loops of every mode for the
@@ -1710,6 +2100,7 @@ def main() -> None:
     launches.update({k: launches2d[k] for k in ("sim2d", "migrate2d")})
     launches.update(launches_new)
     launches.update(launches_shard)
+    launches.update(launches_bf16)
     src = {"p2g_update": ("mpm_tpu_torch/csrc/p2g_update.cu",
                           "mpm_tpu/ops/pallas/p2g_fused.py:168", err_p),
            "g2p_migrate": ("mpm_tpu_torch/csrc/g2p_migrate.cu",
@@ -1724,6 +2115,10 @@ def main() -> None:
                      "mpm_tpu/ops/pallas/kernels2d.py:50", err_sim2d),
            "migrate2d": ("mpm_tpu_torch/csrc/substep2d.cu",
                          "mpm_tpu/ops/pallas/kernels2d.py:231", err_mig2d),
+           "sim2d_bf16": ("mpm_tpu_torch/csrc/substep2d.cu",
+                          "mpm_tpu/ops/pallas/kernels2d.py:50", err_bf16),
+           "migrate2d_bf16": ("mpm_tpu_torch/csrc/substep2d.cu",
+                              "mpm_tpu/ops/pallas/kernels2d.py:231", err_bf16),
            "p2g1_planes": ("mpm_tpu_torch/csrc/planes.cu",
                            "mpm_tpu/ops/pallas/bucket_kernels.py:108",
                            errs_new["p2g1_planes"]),

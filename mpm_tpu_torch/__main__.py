@@ -12,6 +12,9 @@
     python -m mpm_tpu_torch run fluid_3d_cpu --device cpu --mode bucketed
     python -m mpm_tpu_torch run fluid_3d --shards 4 --window auto
     python -m mpm_tpu_torch run fluid_3d_cpu --shards 2 --device cpu --mode bucketed
+    python -m mpm_tpu_torch run dam_break_2d --mode reference
+    python -m mpm_tpu_torch run fluid_3d --mode binned --device cpu
+    python -m mpm_tpu_torch render fluid_3d --render-mode legacy_quad
     python -m mpm_tpu_torch info
 
 `run` steps a scene headless and prints per-run stats and the bucket
@@ -20,10 +23,12 @@ renderer, 2D scenes with render/render2d.py) and writes it as a PNG. Both
 run on the card (`--device cuda`, the default) and stop when none is
 visible. Modes "auto" and "cuda" run the CUDA kernels (under
 MPM_PALLAS_OLD=1 the per-pass kernels A, B, D and E, as the JAX package's
-knob does); mode "bucketed" runs the plain PyTorch engine, and is the only
-mode of `--device cpu`. `--shards N` runs the x-slab decomposition
-(parallel/domain.py) over the first N visible cards, or N CPU slabs under
-`--device cpu`.
+knob does); mode "bucketed" runs the plain PyTorch bucket engine; modes
+"reference" (the dense-scatter oracle) and "binned" (the sorted engine)
+step a linear particle state in plain PyTorch and draw it as a particle
+array. `--device cpu` takes the plain modes: bucketed, reference and
+binned. `--shards N` runs the x-slab decomposition (parallel/domain.py)
+over the first N visible cards, or N CPU slabs under `--device cpu`.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .core.state import SimState
+
 
 def _common(q: argparse.ArgumentParser) -> None:
     """The flags of both `run` and `render` (mpm_tpu/__main__.py:19-103)."""
@@ -51,11 +58,12 @@ def _common(q: argparse.ArgumentParser) -> None:
     q.add_argument("--mode", default="auto",
                    choices=["auto", "bucketed", "cuda", "pallas", "reference", "binned"],
                    help="auto/cuda (pallas, the JAX package's name) = the CUDA kernels; "
-                   "bucketed = the plain PyTorch engine; reference and binned are not "
-                   "ported (ROADMAP.md)")
+                   "bucketed = the plain PyTorch bucket engine; reference = the "
+                   "dense-scatter oracle; binned = the sorted engine (both on a "
+                   "linear particle state)")
     q.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda = the card (stops when none is visible); cpu = "
-                   "the plain engine on the CPU, --mode bucketed only")
+                   "the plain engines on the CPU: --mode bucketed, reference or binned")
     q.add_argument("--window", default="off", choices=["off", "auto"],
                    help="auto = air-window engine (ops/window.py): arrays "
                    "track the occupied y-range; identical physics (3D only)")
@@ -80,8 +88,7 @@ def _common(q: argparse.ArgumentParser) -> None:
     q.add_argument("--interact", action="append", default=[],
                    metavar="sphere=x,y[,z],r[,strength]",
                    help="radial force sphere (repeatable), the reference's sphere "
-                   "collider (g2p.glsl:122-129); at most 8 with --orbit-sphere and "
-                   "the fly pointer")
+                   "collider (g2p.glsl:122-129)")
     q.add_argument("--fluid", action="append", default=[], metavar="KEY=VALUE",
                    help="override a fluid parameter (dt, gravity, rest_density, "
                    "dynamic_viscosity, eos_stiffness, eos_power, pressure_floor; "
@@ -118,7 +125,8 @@ def _parser() -> argparse.ArgumentParser:
     render.add_argument("--render-mode", default="default",
                         choices=["default", "velocity_spheres", "lit_spheres", "depth_debug",
                                  "none", "legacy_quad"],
-                        help="legacy_quad is not ported (ROADMAP.md)")
+                        help="legacy_quad = the reference's dormant packed-depth "
+                        "screen-quad chain (render/legacy.py; bucket modes, ratio 1)")
     render.add_argument("--sphere-render-ratio", type=float, default=1.0,
                         help="below 1: render that share of the live particles as a "
                         "particle array (render_frame), the reference's LOD slider")
@@ -168,15 +176,22 @@ def nvidia_smi_power() -> str:
     return out.stdout.strip() or out.stderr.strip()
 
 
+LINEAR_MODES = ("reference", "binned")  # modes that step a linear SimState
+
+
 def build(scene, mode: str, window: str, substeps: int | None, mesh=None):
     """(step, state, win) for a scene whose state is on its device: the
-    air-window engine when window == "auto" and the scene is 3D, else the
-    plain frame step; over the slab mesh `mesh` when one is given."""
+    air-window engine when window == "auto", the scene is 3D and the mode
+    steps buckets, else the frame step (on the scene's linear state in
+    modes reference and binned); over the slab mesh `mesh` when one is
+    given."""
     from .ops import bucketed
     from .ops.step import make_step
     from .ops.window import YWindow
 
     n = substeps or scene.config.substeps
+    if mode in LINEAR_MODES:
+        return make_step(scene.config, mode=mode, substeps=n), scene.state, None
     if window == "auto" and scene.config.dim == 3:
         win = YWindow(scene.config, mode=mode, substeps=n, mesh=mesh)
         return win.step, win.init(scene.state), win
@@ -201,7 +216,7 @@ def _mesh(args, scene, device):
     if device.type == "cuda" and n > torch.cuda.device_count():
         raise SystemExit(f"--shards {n}: only {torch.cuda.device_count()} device(s) visible "
                          f"(--device cpu --mode bucketed runs {n} CPU slabs)")
-    if scene.config.dim != 3:
+    if scene.config.dim != 3 or args.mode in LINEAR_MODES:
         raise SystemExit("--shards requires a 3D scene on the bucket path")
     nx = scene.config.grid_res[0]
     if n < 1 or nx % n or nx // n < 2:
@@ -214,11 +229,11 @@ def _mesh(args, scene, device):
 
 def _device(args) -> torch.device:
     """The device of --device: the card, or the CPU only when asked for and
-    only under --mode bucketed."""
+    only in the plain modes (bucketed, reference, binned)."""
     if args.device == "cpu":
-        if args.mode != "bucketed":
-            raise SystemExit(f"--device cpu runs only --mode bucketed; mode "
-                             f"{args.mode!r} runs the CUDA kernels")
+        if args.mode not in ("bucketed", *LINEAR_MODES):
+            raise SystemExit(f"--device cpu runs only --mode bucketed, reference or "
+                             f"binned; mode {args.mode!r} runs the CUDA kernels")
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible: --device cpu --mode bucketed runs "
@@ -227,6 +242,13 @@ def _device(args) -> torch.device:
 
 
 def _print_counters(state) -> None:
+    """The bucket counters; a linear state (modes reference and binned) has
+    none, and prints its particle count and whether it is finite."""
+    from .utils.guard import state_is_finite
+
+    if isinstance(state, SimState):
+        print(f"particles: {state.num_particles} finite: {state_is_finite(state)}")
+        return
     lost, deferred, cfl, ceil = (int(v) for v in (
         state.lost, state.deferred, state.cfl_clamped, state.ceiling))
     print(f"lost: {lost} deferred: {deferred} cfl-clamped: {cfl}"
@@ -273,18 +295,12 @@ def _apply_fluid_overrides(args, fluid):
     return fluid, fluid_fn
 
 
-def _parse_interactions(args, config, reserved: int = 0):
+def _parse_interactions(args, config):
     """--interact sphere=... and --orbit-sphere (mpm_tpu/__main__.py:129-167):
     (interactions0, inter_fn(frame) -> tuple). A 2D scene takes spheres
-    too. The kernels take at most MAX_INTER interactions, `reserved` of
-    them spoken for by the caller (the fly pointer): a run that asks for
-    more stops."""
+    too, and the kernels take any number of them."""
     from .ops.interact import Interaction
 
-    if config.dim == 3:
-        from .ops.cuda.g2p_migrate import MAX_INTER
-    else:
-        from .ops.cuda.substep2d import MAX_INTER
     static = []
     for spec in args.interact:
         kind, _, rest = spec.partition("=")
@@ -294,10 +310,6 @@ def _parse_interactions(args, config, reserved: int = 0):
         center, radius = vals[: config.dim], vals[config.dim]
         strength = vals[config.dim + 1] if len(vals) > config.dim + 1 else 1.0
         static.append(Interaction.sphere(center, radius=radius, strength=strength))
-    total = len(static) + int(args.orbit_sphere) + reserved
-    if total > MAX_INTER:
-        raise SystemExit(f"{total} interactions: the kernels take at most {MAX_INTER} "
-                         "(--interact, --orbit-sphere and the fly pointer)")
 
     if not args.orbit_sphere:
         inter = tuple(static)
@@ -326,8 +338,8 @@ def _resume(args, scene, state, win, mesh, device):
     fluid, state at this run's shapes). A windowed checkpoint stores its
     window's arrays with domain_res the true grid: such a state, and any
     state of a windowed run, is un-windowed to a SimState and re-bucketed
-    at this run's window; a SimState becomes buckets; a sharded run shards
-    it."""
+    at this run's window; a SimState becomes buckets, and buckets a
+    SimState in modes reference and binned; a sharded run shards it."""
     from .ops import bucketed
     from .utils import checkpoint
 
@@ -343,6 +355,10 @@ def _resume(args, scene, state, win, mesh, device):
         ck = bucketed.to_simstate(ck)
     if win is not None:
         ck = win.init(ck)
+    elif args.mode in LINEAR_MODES:
+        if isinstance(ck, bucketed.BucketState):
+            ck = bucketed.to_simstate(ck)
+            print("converted bucket checkpoint state to linear")
     elif not isinstance(ck, bucketed.BucketState):
         ck = bucketed.from_simstate(ck, scene.config)
         print("converted linear checkpoint state to buckets")
@@ -385,6 +401,8 @@ def _checkpoint(args, frame: int, state, scene, win) -> None:
 
 
 def _log_counters(metrics, state) -> None:
+    if isinstance(state, SimState):  # the bucket counters only (as the JAX CLI)
+        return
     metrics.log("counters", lost=int(state.lost), deferred=int(state.deferred),
                 cfl_clamped=int(state.cfl_clamped), ceiling=int(state.ceiling))
 
@@ -456,9 +474,12 @@ def cmd_run(args) -> None:
 
 def live_particles(state):
     """The live slots of a bucket state as a particle array: pos [3, K*C]
-    with dead slots pushed to -1e6 (off the frame), and |vel| in float32."""
+    with dead slots pushed to -1e6 (off the frame), and |vel| in float32; a
+    linear SimState's particles as they are."""
     from .render.camera import norm3
 
+    if isinstance(state, SimState):
+        return state.pos, norm3(state.vel.float().T)
     pos = state.pos.reshape(3, -1)
     vel = state.vel.reshape(3, -1).float()
     live = state.mass.reshape(-1) > 0
@@ -527,17 +548,15 @@ def cmd_render(args) -> None:
                          frame_to_u8, load_cubemap, make_full_frame_step, render_frame,
                          render_frame_buckets)
 
-    if args.render_mode == "legacy_quad":
-        raise SystemExit("--render-mode legacy_quad is still to port (ROADMAP.md, queue 1, "
-                         "item 'the dormant reference paths')")
-    particle_path = args.sphere_render_ratio < 1.0
+    particle_path = args.sphere_render_ratio < 1.0 or args.mode in LINEAR_MODES
     if args.shards and args.window == "auto":
         raise SystemExit("--shards render supports --window off only (the windowed+sharded "
                          "engine is available via `run`)")
     if args.shards and particle_path:
         raise SystemExit("--shards render requires the bucket render path "
                          "(--sphere-render-ratio 1.0)")
-    if args.shards and (args.render_quality != "cell" or args.render_mode == "none"):
+    if args.shards and (args.render_quality != "cell"
+                        or args.render_mode in ("none", "legacy_quad")):
         raise SystemExit("--shards render uses the distributed cell-splat composite: "
                          "requires --render-quality cell and a drawing --render-mode")
     device, scene, mesh, step, state, win = _setup(args)
@@ -545,10 +564,13 @@ def cmd_render(args) -> None:
     scene = scene._replace(fluid=fluid0)
     if scene.config.dim == 2:
         return _render_2d_loop(args, scene, step, state, device, fluid_fn)
+    if args.render_mode == "legacy_quad" and particle_path:
+        raise SystemExit("--render-mode legacy_quad reads the bucket-state texture contract: "
+                         "requires a 3D bucketed/cuda scene and --sphere-render-ratio 1.0")
     n = scene.state.num_particles
     substeps = args.substeps or scene.config.substeps
     view_fn, moves, keys, pointer = _camera(args, scene)
-    inter_fn = _parse_interactions(args, scene.config, reserved=int(pointer is not None))[1]
+    inter_fn = _parse_interactions(args, scene.config)[1]
     if pointer is not None:
         # the pointer's sphere is in every frame's tuple; `active` gates it
         base_inter_fn = inter_fn
@@ -585,7 +607,7 @@ def cmd_render(args) -> None:
         full_frame = make_sharded_frame_step(scene.config, mesh, rc, substeps, mode=args.mode,
                                              cubemap_faces=cubemap)
     elif (args.mode != "bucketed" and win is None and rc.quality == "cell"
-          and not particle_path and rc.mode != "none"):
+          and not particle_path and rc.mode not in ("none", "legacy_quad")):
         full_frame = make_full_frame_step(scene.config, rc, substeps, cubemap_faces=cubemap)
 
     def frame(state, i):
@@ -599,7 +621,7 @@ def cmd_render(args) -> None:
         else:
             grid_res = (win.config if win is not None else scene.config).grid_res
             img = render_frame_buckets(state, view, rc, bg=bg, grid_res=grid_res,
-                                       cubemap_faces=cubemap)
+                                       cubemap_faces=cubemap, num_particles=n)
         return state, frame_to_u8(img)
 
     state = _write_frames(args, frame, state, scene, win, device, keys)
@@ -756,12 +778,8 @@ def cmd_info(args) -> None:
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    if args.cmd != "info":
-        if args.mode in ("reference", "binned"):
-            raise SystemExit(f"--mode {args.mode} is still to port (ROADMAP.md, queue 1, "
-                             "items 7 and 8)")
-        if args.mode == "pallas":  # the JAX package's name of the kernel path
-            args.mode = "cuda"
+    if args.cmd != "info" and args.mode == "pallas":  # the JAX package's name of the kernels
+        args.mode = "cuda"
     {"run": cmd_run, "render": cmd_render, "info": cmd_info}[args.cmd](args)
 
 

@@ -46,6 +46,14 @@ class SimState:
         return SimState(pos=self.pos[..., perm], vel=self.vel[..., perm],
                         C=self.C[..., perm], mass=self.mass[perm], ids=self.ids[perm])
 
+    def by_id(self) -> "SimState":
+        """A copy in emission order (ids ascending)."""
+        return self.permute(torch.argsort(self.ids, stable=True))
+
+    def pos_rows(self) -> torch.Tensor:
+        """Positions as [N, D] (host and analysis convenience)."""
+        return self.pos.T
+
 
 def zero_grid(config: SimConfig, device: torch.device | str) -> Grid:
     """The `clear_grid` pass (clear_grid.glsl:20-29): fresh zeros."""

@@ -71,7 +71,8 @@
 
 namespace mpm {
 
-constexpr int MAX_INTER = 8;  // interactions a call takes
+// The interactions reach the tail as a device array of INTER_VALS<D>
+// floats each, any number of them (the parameter blocks' `inter`, `n_inter`).
 template <int D>
 constexpr int INTER_VALS = D + 4;  // centre [D], radius, strength, inv_falloff, active
 
@@ -148,6 +149,18 @@ __host__ __device__ constexpr int tile_buckets() {  // the tile's buckets and th
   return D == 3 ? (tile_dim<3>(0) + 2) * (tile_dim<3>(1) + 2) * (tile_dim<3>(2) + 2)
                 : (tile_dim<2>(0) + 2) * (tile_dim<2>(1) + 2);
 }
+// A cell's occupied slots, bit k for slot k: a 32-bit word M when K <= 32,
+// a 64-bit one when K <= MAX_K. The launchers pick M by K, so the kernels
+// at K <= 32 are those of one word.
+constexpr int MAX_K = 64;
+using Bits64 = unsigned long long;
+__device__ __forceinline__ int slot_first(unsigned m) { return __ffs(m) - 1; }
+__device__ __forceinline__ int slot_first(Bits64 m) { return __ffsll((long long)m) - 1; }
+__device__ __forceinline__ int slot_count(unsigned m) { return __popc(m); }
+__device__ __forceinline__ int slot_count(Bits64 m) { return __popcll(m); }
+__device__ __forceinline__ int slot_end(unsigned m) { return 32 - __clz(m); }
+__device__ __forceinline__ int slot_end(Bits64 m) { return 64 - __clzll((long long)m); }
+
 template <int D>
 __host__ __device__ constexpr size_t mass_tile_smem() {  // a 4-vector partial a tap and node
   return (size_t)NTAPS<D> * tile_nodes<D>() * sizeof(float4);
@@ -194,7 +207,7 @@ struct SlotVals {
 // tile, one thread a node; x below is a node's state coordinate (go planes
 // below its grid plane), so a halo node gathers the state planes within its
 // reach.
-template <int D, typename VC, typename GT, class Params>
+template <int D, typename VC, typename GT, class Params, typename M = unsigned>
 __global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
     p2g_mass_tile(const float* __restrict__ pos, const VC* __restrict__ vel,
                   const VC* __restrict__ Cm, const float* __restrict__ mass,
@@ -234,7 +247,7 @@ __global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
   };
 
   // the occupancy masks of this thread's buckets h = threadIdx.x + j * NN
-  unsigned bits[NB];
+  M bits[NB];
   bool any = false;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
@@ -246,7 +259,7 @@ __global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
     if (!in_grid(g, bx)) continue;
     const int b = flat(g, bx);
     for (int k = 0; k < g.K; ++k)
-      if (mass[(size_t)k * g.C + b] > 0.f) bits[j] |= 1u << k;
+      if (mass[(size_t)k * g.C + b] > 0.f) bits[j] |= M(1) << k;
     any = any || bits[j] != 0;
   }
 
@@ -279,7 +292,7 @@ __global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
 
 #pragma unroll 1
   for (int j = 0; j < NB; ++j) {
-    unsigned occ = 0;  // bits[j], selected without indexing the array by j
+    M occ = 0;  // bits[j], selected without indexing the array by j
 #pragma unroll
     for (int q = 0; q < NB; ++q)
       if (q == j) occ = bits[q];
@@ -302,11 +315,11 @@ __global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
     // the bucket's occupied slots in slot order, each loaded while the one
     // before it is added
     SlotVals<D, VC> nx;
-    nx.load(pos, vel, Cm, mass, (size_t)(__ffs(occ) - 1) * g.C + b, KC);
+    nx.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
     while (occ) {
       const SlotVals<D, VC> sv = nx;
       occ &= occ - 1;
-      if (occ) nx.load(pos, vel, Cm, mass, (size_t)(__ffs(occ) - 1) * g.C + b, KC);
+      if (occ) nx.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
       const float m = sv.m;
       float d[D], v[D], cm[D][D], aw[D][3], cz[D][3];
       for (int a = 0; a < D; ++a) {
@@ -445,10 +458,10 @@ struct ForceTile<2> {
   static constexpr int KS = 4;
   static constexpr int MIN_BLOCKS = 4;
 };
-template <int D>
+template <int D, typename M = unsigned>
 __host__ __device__ constexpr size_t force_tile_smem() {  // records, occupancy masks, chunk count
   return (size_t)ForceTile<D>::KS * ForceTile<D>::NG * tile_buckets<D>() * sizeof(float4) +
-         tile_buckets<D>() * sizeof(unsigned) + sizeof(int);
+         tile_buckets<D>() * sizeof(M) + sizeof(int);
 }
 
 // Record layout: D=3 [p0 p1 p2 ap] [bm M0 M1 M2] [M3 .. M6] [M7 M8 - -];
@@ -466,7 +479,7 @@ __device__ __forceinline__ int rec_m(int e) { return D + 2 + e; }
 // grid update into gvel; else from zero into out, the per-pass kernel B).
 // One thread per node of a tile of grid_geom(p.g, s); x below is the
 // node's state coordinate (go planes below its grid plane).
-template <int D, typename VC, typename GT, bool UPDATE, class Params>
+template <int D, typename VC, typename GT, bool UPDATE, class Params, typename M = unsigned>
 __global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
     p2g_force_tile(const float* __restrict__ pos, const VC* __restrict__ Cm,
                    const float* __restrict__ mass, const float* __restrict__ a_p,
@@ -479,7 +492,7 @@ __global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
   constexpr int NR = NG * 4;  // floats a record
   extern __shared__ float4 smem[];
   float4* rec = smem;                                     // [KS][NG][HB]
-  unsigned* occ = (unsigned*)(rec + KS * NG * HB);        // [HB] slot bits
+  M* occ = (M*)(rec + KS * NG * HB);                      // [HB] slot bits
   int* kmax = (int*)(occ + HB);
   const GridGeom<D>& g = p.g;
   const GridGeom<D> gg = grid_geom(g, s);
@@ -511,14 +524,14 @@ __global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
   for (int h = threadIdx.x; h < HB; h += blockDim.x) {
     int bx[D];
     halo_cell(h, bx);
-    unsigned bits = 0;
+    M bits = 0;
     if (in_grid(g, bx)) {
       const int b = flat(g, bx);
       for (int k = 0; k < g.K; ++k)
-        if (mass[(size_t)k * g.C + b] > 0.f) bits |= 1u << k;
+        if (mass[(size_t)k * g.C + b] > 0.f) bits |= M(1) << k;
     }
     occ[h] = bits;
-    if (bits) atomicMax(kmax, 32 - __clz(bits));
+    if (bits) atomicMax(kmax, slot_end(bits));
   }
 
   // this thread's node
@@ -547,7 +560,7 @@ __global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
     if (k0) __syncthreads();  // the previous chunk is consumed
     for (int e = threadIdx.x; e < KS * HB; e += blockDim.x) {
       const int kk = e / HB, h = e % HB, k = k0 + kk;
-      if (k >= g.K || !((occ[h] >> k) & 1u)) continue;
+      if (k >= g.K || !((occ[h] >> k) & 1)) continue;
       int bx[D];
       halo_cell(h, bx);
       const size_t i = (size_t)k * g.C + flat(g, bx);
@@ -585,7 +598,7 @@ __global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
         tap_digits(t, tt);
         int h = lx[0] + tt[0];
         for (int a = 1; a < D; ++a) h = h * hn[a] + lx[a] + tt[a];
-        if (!((occ[h] >> k) & 1u)) continue;
+        if (!((occ[h] >> k) & 1)) continue;
         float r[NR];
         for (int q = 0; q < NG; ++q) {
           const float4 v = rec[(kk * NG + q) * HB + h];
@@ -668,13 +681,15 @@ template <int D, typename VC, typename GT, bool UPDATE, class Params>
 cudaError_t launch_p2g_force(const Params& p, const float* pos, const VC* Cm, const float* mass,
                              const float* a_p, const float* b_mu, const GT* gmass,
                              const GT* gmom, GT* out, cudaStream_t stream, const Slab& s) {
-  if (p.g.K > 32) return cudaErrorInvalidValue;  // one occupancy bit a slot
+  if (p.g.K > MAX_K) return cudaErrorInvalidValue;  // one occupancy bit a slot
   const GridGeom<D> gg = grid_geom(p.g, s);
   unsigned tiles = 1;
   for (int a = 0; a < D; ++a) tiles *= (gg.n[a] + tile_dim<D>(a) - 1) / tile_dim<D>(a);
-  constexpr size_t smem = force_tile_smem<D>();
-  auto kern = p2g_force_tile<D, VC, GT, UPDATE, Params>;
-  if constexpr (smem > 48 * 1024) {  // above 48 KB only when asked for
+  const bool wide = p.g.K > 32;
+  const size_t smem = wide ? force_tile_smem<D, Bits64>() : force_tile_smem<D>();
+  auto kern = wide ? p2g_force_tile<D, VC, GT, UPDATE, Params, Bits64>
+                   : p2g_force_tile<D, VC, GT, UPDATE, Params>;
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -881,7 +896,7 @@ __global__ void migrate_reject(const float* __restrict__ pos, const float* __res
 // warp's lanes store row n of neighbouring cells together; empty slots get
 // zeros and idx -1, the excess counts in `lost`. The payload (vel, C, ids)
 // moves once, after the last phase (migrate_gather).
-template <int D>
+template <int D, typename M = unsigned>
 __global__ void migrate_select(const float* __restrict__ pos, const float* __restrict__ R,
                                const float* __restrict__ mass, const int* __restrict__ idx,
                                float* __restrict__ pos_o, float* __restrict__ mass_o,
@@ -897,7 +912,7 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
 
   // candidates: own slots staying (shift 0), the left neighbour's slots
   // moving +1, the right neighbour's moving -1
-  unsigned sel[3];
+  M sel[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int shift = j == 0 ? 0 : (j == 1 ? 1 : -1);
@@ -907,12 +922,12 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
     const int src = c - shift * st;
     for (int k = 0; k < g.K; ++k) {
       const size_t i = (size_t)k * g.C + src;
-      if (mass[i] > 0.f && axis_delta(R[i], src_co + xg) == (float)shift) sel[j] |= 1u << k;
+      if (mass[i] > 0.f && axis_delta(R[i], src_co + xg) == (float)shift) sel[j] |= M(1) << k;
     }
   }
-  const int total = __popc(sel[0]) + __popc(sel[1]) + __popc(sel[2]);
+  const int total = slot_count(sel[0]) + slot_count(sel[1]) + slot_count(sel[2]);
   int j = 0;
-  unsigned m = sel[0];
+  M m = sel[0];
   for (int n = 0; n < g.K; ++n) {
     const size_t o = (size_t)n * g.C + c;
     while (m == 0 && j < 2) m = ++j == 1 ? sel[1] : sel[2];
@@ -922,7 +937,7 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
       idx_o[o] = -1;
       continue;
     }
-    const int k = __ffs(m) - 1;
+    const int k = slot_first(m);
     m &= m - 1;
     const int src = c - (j == 0 ? 0 : (j == 1 ? st : -st));
     const size_t i = (size_t)k * g.C + src;
@@ -966,12 +981,13 @@ template <int D, typename VC, typename GT, class Params>
 cudaError_t launch_p2g_pass1(const Params& p, const float* pos, const VC* vel, const VC* Cm,
                              const float* mass, GT* gmass, GT* gmom, cudaStream_t stream,
                              const Slab& s = whole_grid()) {
-  if (p.g.K > 32) return cudaErrorInvalidValue;  // one occupancy bit a slot
+  if (p.g.K > MAX_K) return cudaErrorInvalidValue;  // one occupancy bit a slot
   const GridGeom<D> gg = grid_geom(p.g, s);
   unsigned tiles = 1;
   for (int a = 0; a < D; ++a) tiles *= (gg.n[a] + tile_dim<D>(a) - 1) / tile_dim<D>(a);
   constexpr size_t smem = mass_tile_smem<D>();
-  auto kern = p2g_mass_tile<D, VC, GT, Params>;
+  auto kern = p.g.K > 32 ? p2g_mass_tile<D, VC, GT, Params, Bits64>
+                         : p2g_mass_tile<D, VC, GT, Params>;
   if constexpr (smem > 48 * 1024) {  // above 48 KB only when asked for
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1036,14 +1052,15 @@ struct StateBuf {
 // writes the last phase's buffer, which holds the result (out0 for D = 3,
 // out1 for D = 2). src.vel, src.C and src.ids must not be out0's or out1's;
 // src.pos may be out1's (the first phase has read it when the second
-// writes). R is a [K, C] scratch row. K <= 32 (a bit a slot).
+// writes). R is a [K, C] scratch row. K <= MAX_K (a bit a slot).
 template <int D, typename T>
 cudaError_t launch_migrate(const GridGeom<D>& g, StateBuf<T> src, StateBuf<T> out0,
                            StateBuf<T> out1, float* R, int* lost, int* deferred,
                            int* ceiling, int ceil_band_y, cudaStream_t stream,
                            const Slab& s = whole_grid()) {
-  if (g.K > 32) return cudaErrorInvalidValue;
+  if (g.K > MAX_K) return cudaErrorInvalidValue;
   const StateBuf<T> first = src;
+  auto select = g.K > 32 ? migrate_select<D, Bits64> : migrate_select<D>;
   StateBuf<T> dst = out0;
   const int* idx = nullptr;
   for (int ph = 0; ph < D; ++ph) {
@@ -1052,7 +1069,7 @@ cudaError_t launch_migrate(const GridGeom<D>& g, StateBuf<T> src, StateBuf<T> ou
         src.pos, src.mass, R, deferred, ceiling, axis, ceil_band_y, g, s);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    migrate_select<D><<<blocks_for(g.C, THREADS), THREADS, 0, stream>>>(
+    select<<<blocks_for(g.C, THREADS), THREADS, 0, stream>>>(
         src.pos, R, src.mass, idx, dst.pos, dst.mass, dst.ids, lost, axis, g, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;

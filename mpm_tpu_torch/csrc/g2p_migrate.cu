@@ -68,7 +68,7 @@ struct G2PParams {
   float clamp_lo, clamp_hi_offset;
   float wall_min, wall_max_offset, wall_stiffness;
   float fixed_mult;  // fixed-point multiplier (read for an int32 grid only)
-  float inter[mpm::MAX_INTER * mpm::INTER_VALS<3>];
+  const float* inter;  // device [n_inter, INTER_VALS<3>]; null when n_inter is 0
 };
 
 enum { CNT_LOST = 0, CNT_CFL = 1, CNT_DEFERRED = 2, CNT_CEILING = 3 };
@@ -96,7 +96,6 @@ cudaError_t launch(const G2PParams& p, mpm::StateBuf<RAW> in, const GT* gvel,
 extern "C" {
 
 int g2p_migrate_params_size() { return (int)sizeof(G2PParams); }
-int g2p_migrate_max_interactions() { return mpm::MAX_INTER; }
 
 // Input state (pos, vel, C, mass, ids) and grid velocity gvel [3, C] (on a
 // slab [3, C + 2 * go * plane cells]), float32, or int32 fixed point when

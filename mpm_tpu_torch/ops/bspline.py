@@ -18,6 +18,16 @@ from functools import lru_cache
 import torch
 
 
+def base_cell(pos: torch.Tensor) -> torch.Tensor:
+    """Integer base cell (floor) per particle: [D, N] -> [D, N] int32."""
+    return torch.floor(pos).to(torch.int32)
+
+
+def cell_diff(pos: torch.Tensor) -> torch.Tensor:
+    """Fractional offset from the base cell centre: frac(pos) - 0.5."""
+    return pos - torch.floor(pos) - 0.5
+
+
 @lru_cache(maxsize=None)
 def taps(dim: int) -> tuple[tuple[int, ...], ...]:
     """The 3^D tap indices (0, 1, 2 per axis; node = base + tap - 1), in the

@@ -25,7 +25,7 @@ import torch
 from ...core.params import FluidParams, SimConfig
 from ...core.state import Grid
 from ..bucketed import WHOLE, BucketState, Slab, g2p_bucketed, migrate
-from ..interact import Interaction
+from ..interact import Interaction, interaction_rows
 from . import build
 from .extract_cells import cell_splats_plain, render_scals_for, scals_arg
 from .p2g_update import check_state, check_supported
@@ -35,9 +35,6 @@ __all__ = ["g2p_migrate", "g2p_migrate_plain", "render_scals_for"]
 launches = 0  # kernel launches by g2p_migrate (plain-version calls not counted)
 emit_launches = 0  # of those, launches that emitted splats
 shard_launches = 0  # of those, launches in shard mode
-
-MAX_INTER = 8  # csrc/g2p_migrate.cu MAX_INTER
-_INTER_VALS = 7
 
 
 class SlabC(ctypes.Structure):
@@ -64,7 +61,7 @@ class G2PParams(ctypes.Structure):
         ("clamp_lo", ctypes.c_float), ("clamp_hi_offset", ctypes.c_float),
         ("wall_min", ctypes.c_float), ("wall_max_offset", ctypes.c_float),
         ("wall_stiffness", ctypes.c_float), ("fixed_mult", ctypes.c_float),
-        ("inter", ctypes.c_float * (MAX_INTER * _INTER_VALS)),
+        ("inter", ctypes.c_void_p),
     ]
 
 
@@ -83,15 +80,13 @@ def ceiling_band_y(config: SimConfig) -> int:
     return -1
 
 
-def _params(config: SimConfig, fp: FluidParams,
-            interactions: Sequence[Interaction], slab: Slab) -> G2PParams:
-    if len(interactions) > MAX_INTER:
-        raise ValueError(f"kernel F takes at most {MAX_INTER} interactions")
+def _params(config: SimConfig, fp: FluidParams, inter: torch.Tensor | None, n_inter: int,
+            slab: Slab) -> G2PParams:
     p = G2PParams()
     p.nx, p.ny, p.nz = config.grid_res
     p.K, p.C = config.bin_capacity, config.num_cells
     p.dres[:] = list(config.dres)
-    p.n_inter = len(interactions)
+    p.n_inter = n_inter
     p.ceil_band_y = ceiling_band_y(config)
     p.slab = slab_arg(slab)
     p.dt = float(fp.dt)
@@ -99,8 +94,7 @@ def _params(config: SimConfig, fp: FluidParams,
     p.wall_min, p.wall_max_offset = config.wall_min, config.wall_max_offset
     p.wall_stiffness = config.wall_stiffness
     p.fixed_mult = config.fixed_point_mult
-    vals = [v for it in interactions for v in it.values()]
-    p.inter[: len(vals)] = vals
+    p.inter = None if inter is None else inter.data_ptr()
     return p
 
 
@@ -112,10 +106,7 @@ def _lib() -> ctypes.CDLL:
     lib.g2p_migrate.restype = ci
     lib.g2p_migrate_params_size.argtypes = []
     lib.g2p_migrate_params_size.restype = ci
-    lib.g2p_migrate_max_interactions.argtypes = []
-    lib.g2p_migrate_max_interactions.restype = ci
-    if (lib.g2p_migrate_params_size() != ctypes.sizeof(G2PParams)
-            or lib.g2p_migrate_max_interactions() != MAX_INTER):
+    if lib.g2p_migrate_params_size() != ctypes.sizeof(G2PParams):
         raise RuntimeError("G2PParams layout differs between csrc and Python")
     return lib
 
@@ -159,7 +150,8 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
     R = torch.empty_like(state.mass)
     cnt = torch.stack([state.lost, state.cfl_clamped, state.deferred,
                        state.ceiling]).to(torch.int32)
-    params = _params(config, fp, interactions, slab)
+    inter = interaction_rows(interactions, 3, dev)
+    params = _params(config, fp, inter, len(interactions), slab)
     splats = (torch.empty((5, config.num_cells), dtype=torch.float32, device=dev)
               if emit_splats else None)
     lib = _lib()

@@ -30,8 +30,8 @@ def check_planes(config: SimConfig) -> None:
     if config.dim != 3 or config.fixed_point or config.vc_dtype != torch.float32:
         raise NotImplementedError(
             "the per-pass kernels (MPM_PALLAS_OLD=1) take 3D float32 configs with "
-            "float grids, as the JAX package's do; bf16, fixed-point and 2D configs "
-            'run on mode="cuda" without MPM_PALLAS_OLD')
+            "float grids, as the JAX package's do; mode=\"cuda\" runs bf16, fixed-point "
+            "and 2D configs on the plain engine")
     if config.domain_res is not None:
         # fused.py:1173-1185: the per-pass kernels do not enforce the air
         # window's ceiling band

@@ -12,8 +12,9 @@ bucket_kernels.py, which the JAX package runs under MPM_PALLAS_OLD=1
 
 Every wrapper takes its plain version for a state on the CPU and launches
 its kernel for a state on a CUDA device; there is no other fallback. The
-per-pass path takes what the JAX kernels take (bucket_kernels.
-pallas_supported): 3D, float32 storage, float grids.
+kernels take what the JAX kernels take (bucket_kernels.pallas_supported):
+3D, float32 storage, float grids; `substep` runs any other config on the
+plain engine, as bucket_kernels.substep does.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from ...core.params import FluidParams, SimConfig
 from ...core.state import Grid
+from .. import bucketed
 from ..bucketed import (BucketState, advect_tail, force_coefs, g2p_gather, p2g_pass1,
                         p2g_pass2)
 from ..grid import update_grid
@@ -197,7 +199,14 @@ def _per_pass(state, config, fp, interactions, p2g1, p2g2, g2p, migrate_fn):
 def substep(state: BucketState, config: SimConfig, fp: FluidParams,
             interactions: Sequence[Interaction] = ()) -> BucketState:
     """The per-pass substep: kernels A, B, D and E (their plain versions
-    for a state on the CPU)."""
+    for a state on the CPU). A config outside their envelope (2D, fixed
+    point, bf16 storage; ops/cuda/step.route) runs the plain engine, as
+    bucket_kernels.substep sends it to the XLA engine; a windowed config
+    raises (check_planes)."""
+    from .step import route
+
+    if route(config, per_pass=True) == "plain":
+        return bucketed.substep(state, config, fp, interactions)
     check_planes(config)
     return _per_pass(state, config, fp, interactions, p2g1_planes, p2g2_planes, g2p_planes,
                      migrate_planes)

@@ -10,8 +10,10 @@ beside their plain PyTorch versions: the port of
 - `substep2d`: one after the other.
 
 Each wrapper takes its plain version for a state on the CPU and launches
-its kernel for a state on a CUDA device; there is no other fallback. Float32
-storage only: bf16 vel/C and fixed-point 2D configs raise.
+its kernel for a state on a CUDA device; there is no other fallback. vel
+and C are stored as float32 or bf16; fixed-point 2D configs raise (the JAX
+package's `supported2d` refuses them too, and ops/cuda/step.route sends
+them to the plain engine).
 """
 
 from __future__ import annotations
@@ -25,15 +27,12 @@ import torch
 from ...core.params import FluidParams, SimConfig
 from ..bucketed import BucketState, g2p_bucketed, migrate, p2g_bucketed
 from ..grid import update_grid
-from ..interact import Interaction
+from ..interact import Interaction, interaction_rows
 from . import build
 from .p2g_update import _BC, check_grid, check_state
 
 sim2d_launches = 0  # kernel launches by sim2d (plain-version calls not counted)
 migrate2d_launches = 0  # kernel launches by migrate2d
-
-MAX_INTER = 8  # csrc/substep2d.cu MAX_INTER
-_INTER_VALS = 6  # cx, cy, radius, strength, inv_falloff, active
 
 
 class Sim2DParams(ctypes.Structure):
@@ -51,7 +50,7 @@ class Sim2DParams(ctypes.Structure):
         ("clamp_lo", ctypes.c_float), ("clamp_hi_offset", ctypes.c_float),
         ("wall_min", ctypes.c_float), ("wall_max_offset", ctypes.c_float),
         ("wall_stiffness", ctypes.c_float),
-        ("inter", ctypes.c_float * (MAX_INTER * _INTER_VALS)),
+        ("inter", ctypes.c_void_p),
     ]
 
 
@@ -76,22 +75,15 @@ def check_supported2d(config: SimConfig) -> None:
     check_grid(config)
     if config.fixed_point:
         raise NotImplementedError(
-            "fixed-point 2D grids are still to port (ROADMAP.md, queue 1, item "
-            "'2D bf16 storage and fixed-point 2D configs'); kernels2d.supported2d "
-            "refuses them too")
-    if config.vc_dtype != torch.float32:
-        raise NotImplementedError(
-            "bf16 vel/C storage in 2D is still to port (ROADMAP.md, queue 1, "
-            "item '2D bf16 storage')")
+            "the 2D kernels take float grids: kernels2d.supported2d refuses "
+            'fixed-point 2D configs too, and mode="cuda" runs them on the plain engine')
     if config.domain_res is not None and config.domain_res != config.grid_res:
         raise NotImplementedError("the air window is 3D; a 2D config has no "
                                   "domain_res of its own")
 
 
-def _params(config: SimConfig, fp: FluidParams,
-            interactions: Sequence[Interaction] = ()) -> Sim2DParams:
-    if len(interactions) > MAX_INTER:
-        raise ValueError(f"sim2d takes at most {MAX_INTER} interactions")
+def _params(config: SimConfig, fp: FluidParams, inter: torch.Tensor | None,
+            n_inter: int) -> Sim2DParams:
     p = Sim2DParams()
     p.nx, p.ny = config.grid_res
     p.K, p.C = config.bin_capacity, config.num_cells
@@ -102,7 +94,7 @@ def _params(config: SimConfig, fp: FluidParams,
     p.eos_pow_n = int(ps) if ps.is_integer() and 0 < ps <= 32 else 0
     p.eos_pow_f = ps if ps else float(fp.eos_power)
     p.legacy_strain = int(config.legacy_strain)
-    p.n_inter = len(interactions)
+    p.n_inter = n_inter
     p.dt = float(fp.dt)
     p.gravity[:] = [float(v) for v in fp.gravity.tolist()]
     p.rest_density = float(fp.rest_density)
@@ -113,10 +105,7 @@ def _params(config: SimConfig, fp: FluidParams,
     p.clamp_lo, p.clamp_hi_offset = config.clamp_lo, config.clamp_hi_offset
     p.wall_min, p.wall_max_offset = config.wall_min, config.wall_max_offset
     p.wall_stiffness = config.wall_stiffness
-    vals = [v for it in interactions for v in it.values()]
-    if len(vals) != _INTER_VALS * len(interactions):
-        raise ValueError("sim2d takes 2D interactions (a center of 2 values)")
-    p.inter[: len(vals)] = vals
+    p.inter = None if inter is None else inter.data_ptr()
     return p
 
 
@@ -124,15 +113,13 @@ def _params(config: SimConfig, fp: FluidParams,
 def _lib() -> ctypes.CDLL:
     lib = build.load("substep2d")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sim2d.argtypes = [vp] * 15
+    lib.sim2d.argtypes = [vp] * 14 + [ci, vp]
     lib.sim2d.restype = ci
-    lib.migrate2d.argtypes = [ci] * 3 + [vp] * 18
+    lib.migrate2d.argtypes = [ci] * 3 + [vp] * 17 + [ci, vp]
     lib.migrate2d.restype = ci
-    for fn in (lib.substep2d_params_size, lib.substep2d_max_interactions):
-        fn.argtypes = []
-        fn.restype = ci
-    if (lib.substep2d_params_size() != ctypes.sizeof(Sim2DParams)
-            or lib.substep2d_max_interactions() != MAX_INTER):
+    lib.substep2d_params_size.argtypes = []
+    lib.substep2d_params_size.restype = ci
+    if lib.substep2d_params_size() != ctypes.sizeof(Sim2DParams):
         raise RuntimeError("Sim2DParams layout differs between csrc and Python")
     return lib
 
@@ -159,6 +146,7 @@ def sim2d(state: BucketState, config: SimConfig, fp: FluidParams,
     check_supported2d(config)
     check_state(state, config)
     k, c = config.bin_capacity, config.num_cells
+    inter = interaction_rows(interactions, 2, dev)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -168,13 +156,14 @@ def sim2d(state: BucketState, config: SimConfig, fp: FluidParams,
     pos, vel, C = (torch.empty_like(state.pos), torch.empty_like(state.vel),
                    torch.empty_like(state.C))
     cfl = state.cfl_clamped.to(torch.int32).reshape(1).clone()
-    params = _params(config, fp, interactions)
+    params = _params(config, fp, inter, len(interactions))
     lib = _lib()
     P = build.ptr
     with torch.cuda.device(dev):
         rc = lib.sim2d(ctypes.byref(params), P(state.pos), P(state.vel), P(state.C),
                        P(state.mass), P(gmass), P(gmom), P(a_p), P(b_mu), P(gvel), P(pos),
-                       P(vel), P(C), P(cfl), build.stream_of(dev))
+                       P(vel), P(C), P(cfl), int(config.vc_dtype == torch.bfloat16),
+                       build.stream_of(dev))
     build.check_rc("sim2d", rc)
     sim2d_launches += 1
     return state.replace(pos=pos, vel=vel, C=C, cfl_clamped=cfl[0])
@@ -204,7 +193,8 @@ def migrate2d(state: BucketState, config: SimConfig) -> BucketState:
     with torch.cuda.device(dev):
         rc = lib.migrate2d(nx, ny, config.bin_capacity, P(state.pos), P(state.vel), P(state.C),
                            P(state.mass), P(state.ids), *[P(t) for t in a],
-                           *[P(t) for t in b], P(R), P(cnt), build.stream_of(dev))
+                           *[P(t) for t in b], P(R), P(cnt),
+                           int(config.vc_dtype == torch.bfloat16), build.stream_of(dev))
     build.check_rc("migrate2d", rc)
     migrate2d_launches += 1
     pos, vel, C, mass, ids = b

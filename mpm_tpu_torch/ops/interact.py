@@ -13,6 +13,7 @@ no code path.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import torch
@@ -55,6 +56,32 @@ class Interaction:
         return [float(v) for v in self.center.tolist()] + [
             float(self.radius), float(self.strength), float(self.inv_falloff),
             float(self.active)]
+
+
+def interaction_rows(interactions: Sequence[Interaction], dim: int,
+                     device) -> torch.Tensor | None:
+    """The interactions as one float32 array [n, dim + 4] on `device`, each
+    row `values()`, in list order (the CUDA tails read it by pointer, any
+    number of rows); None for none. Raises for a centre of another
+    dimension. Read-only: one array is kept for each set of values."""
+    if not interactions:
+        return None
+    rows = tuple(tuple(it.values()) for it in interactions)
+    if any(len(r) != dim + 4 for r in rows):
+        raise ValueError(f"the {dim}D tails take {dim}D interactions (a centre of {dim} values)")
+    return _rows_on(rows, torch.device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _rows_on(rows: tuple, device: torch.device) -> torch.Tensor:
+    """The rows on `device`, made once for each set of values (a moving
+    sphere makes a new one each time it moves). To a card from pinned
+    memory, so the copy is queued on the stream and the host does not wait
+    for the card."""
+    host = torch.tensor(rows, dtype=torch.float32)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def apply_interactions(pos: torch.Tensor, vel: torch.Tensor,

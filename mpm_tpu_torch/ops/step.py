@@ -6,9 +6,11 @@ is a Python loop over substeps; there is nothing to compile.
 
 Modes: "bucketed" (plain PyTorch, ops/bucketed.py) and "cuda" (kernels P
 and F for a 3D config, sim2d and migrate2d for a 2D one, the per-pass
-kernels A, B, D and E under MPM_PALLAS_OLD=1; ops/cuda/). "auto" is
-"cuda": its kernel wrappers launch the kernels for a state on a CUDA device
-and take their plain versions on the CPU.
+kernels A, B, D and E under MPM_PALLAS_OLD=1; ops/cuda/) step a
+BucketState; "reference" (the dense-scatter oracle, ops/reference.py) and
+"binned" (the sorted engine, ops/binned.py) step a linear SimState. "auto"
+is "cuda": its kernel wrappers launch the kernels for a state on a CUDA
+device and take their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -16,15 +18,24 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 from ..core.params import FluidParams, SimConfig
+from ..core.state import SimState
 from .bucketed import BucketState
 from .interact import Interaction
 
-SubstepFn = Callable[..., BucketState]
-FrameFn = Callable[[BucketState, FluidParams, Sequence[Interaction]], BucketState]
+SubstepFn = Callable[..., BucketState | SimState]
+FrameFn = Callable[..., BucketState | SimState]
 
 
 def resolve_substep(mode: str) -> SubstepFn:
     """The substep function for a mode name."""
+    if mode == "reference":
+        from . import reference
+
+        return reference.substep
+    if mode == "binned":
+        from . import binned
+
+        return binned.substep
     if mode == "bucketed":
         from . import bucketed
 
@@ -43,8 +54,7 @@ def make_frame_fn(config: SimConfig, mode: str = "auto",
     substep_fn = resolve_substep(mode)
     n = substeps if substeps is not None else config.substeps
 
-    def frame(state: BucketState, fp: FluidParams,
-              interactions: Sequence[Interaction] = ()) -> BucketState:
+    def frame(state, fp: FluidParams, interactions: Sequence[Interaction] = ()):
         for _ in range(n):
             state = substep_fn(state, config, fp, interactions)
         return state
@@ -54,5 +64,7 @@ def make_frame_fn(config: SimConfig, mode: str = "auto",
 
 def make_step(config: SimConfig, mode: str = "auto",
               substeps: int | None = None) -> FrameFn:
-    """The per-frame step on a BucketState (ops/bucketed.from_simstate)."""
+    """The per-frame step: on a BucketState (ops/bucketed.from_simstate) in
+    modes "bucketed", "cuda" and "auto", on a SimState in "reference" and
+    "binned"."""
     return make_frame_fn(config, mode, substeps)

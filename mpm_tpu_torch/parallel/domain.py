@@ -28,8 +28,11 @@ The exchanges are slicing and torch.cat of neighbour planes copied with
 already queued on both devices' current streams, and on one card stream
 order does it. Counters count the slab's own planes only (the kernels'
 gate) and each slab's deltas are summed once per frame, as the JAX
-package's psum. The sort-based sharded step of the binned engine
-(domain.py:49-514) waits with that engine.
+package's psum.
+
+The sort-based sharded step of the binned engine (domain.py:49-514) comes
+after it: `ShardConfig`, `shard_scene`, `make_sharded_step`, `gather_live`
+on linear per-slab states (the section at the end).
 """
 
 from __future__ import annotations
@@ -40,11 +43,13 @@ from typing import Sequence
 import torch
 
 from ..core.params import FluidParams, SimConfig
-from ..core.state import Grid
+from ..core.state import Grid, SimState
+from ..ops import binned, reference, transfer
 from ..ops.bucketed import BucketState, Slab, from_simstate, slab_config
 from ..ops.cuda import p2g_shard
 from ..ops.cuda.extract_cells import cell_splats_plain
 from ..ops.cuda.g2p_migrate import g2p_migrate, g2p_migrate_plain
+from ..ops.grid import update_grid
 from ..ops.interact import Interaction
 
 COUNTERS = ("lost", "cfl_clamped", "deferred", "ceiling")
@@ -297,3 +302,309 @@ def demo_sharded_bucket_step(n_slabs: int, device="cuda") -> None:
             raise AssertionError(f"demo_sharded_bucket_step ({label}): lost {int(out.lost)}")
         want = make_step(cfg, substeps=1)(b0, scene.fluid)
         _check_equal(gather_bucket_state(out), want, f"demo_sharded_bucket_step ({label})")
+
+
+# --------------------------------------------------------------------------
+# The sort-based sharded step of the binned engine (domain.py:49-514)
+# --------------------------------------------------------------------------
+#
+# Each slab owns the particles whose base cell lies in its x planes, in a
+# linear SimState of fixed capacity with dead slots (mass 0). Per substep:
+# a local sort by cell id on the slab's grid padded with one halo plane a
+# side; P2G pass 1; the halo reduce (each slab adds its halo planes into
+# its neighbours' edge planes); the mass halo fill; pass 2; a second,
+# momentum-only reduce; the grid update with global bands; the velocity
+# halo fill; G2P against the local grid with the advection tail in global
+# coordinates; then migration: the slab's leftward movers sort to the front
+# of its order and the rightward ones to the live tail, from where fixed
+# windows of migration_capacity carry them to the neighbours' tail slots.
+# The exchanges are tensor copies between slabs (`.to(device)`), each slab
+# reading its neighbours' values from before the exchange, as ppermute does.
+
+DEAD_CID = 2_000_000_000  # the flat id of a dead slot: sorts last, in no segment
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig:
+    """n_shards slabs along x; each holds local_capacity particle slots, of
+    which the last 2 * migration_capacity receive migrants."""
+
+    n_shards: int
+    local_capacity: int = 0
+    migration_capacity: int = 0
+
+    def local_planes(self, config: SimConfig) -> int:
+        if config.grid_res[0] % self.n_shards:
+            raise ValueError("grid axis 0 must divide evenly over the shards")
+        return config.grid_res[0] // self.n_shards
+
+
+@dataclasses.dataclass
+class ShardedSimState:
+    """One linear SimState of local_capacity slots per slab, on its mesh
+    device, in x order."""
+
+    slabs: list[SimState]
+
+
+def _local_config(config: SimConfig, sconf: ShardConfig) -> SimConfig:
+    """The padded local grid (the slab's planes and one halo plane a side),
+    for tap offsets, cell counts and flags."""
+    return config.replace(grid_res=(sconf.local_planes(config) + 2, *config.grid_res[1:]))
+
+
+def _local_geometry(pos: torch.Tensor, alive: torch.Tensor, config: SimConfig,
+                    x0: int) -> transfer.TransferGeometry:
+    """The geometry against the padded local grid: the flat id uses the
+    halo-shifted x plane; dead slots take DEAD_CID."""
+    base_raw = torch.floor(pos).to(torch.int32)
+    base = torch.stack([torch.clamp(base_raw[a], 1, config.grid_res[a] - 2)
+                        for a in range(config.dim)])
+    d = pos - base.to(pos.dtype) - 0.5
+    lcid = base[0] - x0 + 1  # padded plane index; the interior is [1, loc_x]
+    for a in range(1, config.dim):
+        lcid = lcid * config.grid_res[a] + base[a]
+    lcid = torch.where(alive, lcid, DEAD_CID)
+    return transfer.TransferGeometry(base=base, d=d, flat_base=lcid)
+
+
+def _update_grid_local(grid: Grid, cfg_local: SimConfig, config: SimConfig, fp: FluidParams,
+                       x0: int) -> Grid:
+    """The grid update with global boundary bands (domain.py:99-160): the
+    padded plane p lies at global x = x0 + p - 1, and every band sits at
+    the global grid's walls (grid_res, as the JAX package's)."""
+    return update_grid(grid, cfg_local.replace(domain_res=config.grid_res), fp, x0=x0 - 1)
+
+
+def _halo_reduce(grids: list[Grid], loc: int, pc: int, mom_only: bool = False) -> list[Grid]:
+    """Add each slab's halo planes into its neighbours' edge planes (zero
+    past the global ends). `mom_only` leaves the mass: the second reduce
+    must not add the filled halo mass, the neighbour's own."""
+    n = len(grids)
+    out = []
+    for a, g in enumerate(grids):
+        mom, mass = g.mom.clone(), g.mass.clone()
+        for p, src, q in ((1, a - 1, loc + 1), (loc, a + 1, 0)):
+            if 0 <= src < n:
+                nb = grids[src]
+                mom[:, p * pc:(p + 1) * pc] += _planes(nb.mom, pc, q, q + 1).to(mom.device)
+                if not mom_only:
+                    mass[p * pc:(p + 1) * pc] += _planes(nb.mass, pc, q, q + 1).to(mass.device)
+        out.append(Grid(mom=mom, mass=mass))
+    return out
+
+
+def _halo_fill(grids: list[Grid], loc: int, pc: int, mom_too: bool) -> list[Grid]:
+    """Set each slab's halo planes to its neighbours' edge planes: the mass
+    always (pass 2's density needs the whole neighbourhood), the momentum
+    only when `mom_too` (the updated velocities for G2P), else zero so that
+    the second reduce carries pass 2's contributions alone. Zero past the
+    global ends."""
+    n = len(grids)
+    out = []
+    for a, g in enumerate(grids):
+        mom, mass = g.mom.clone(), g.mass.clone()
+        for p, src, q in ((0, a - 1, loc), (loc + 1, a + 1, 1)):
+            cols = slice(p * pc, (p + 1) * pc)
+            have = 0 <= src < n
+            mass[cols] = _planes(grids[src].mass, pc, q, q + 1).to(mass.device) if have else 0
+            mom[:, cols] = (_planes(grids[src].mom, pc, q, q + 1).to(mom.device)
+                            if have and mom_too else 0)
+        out.append(Grid(mom=mom, mass=mass))
+    return out
+
+
+def _window(state: SimState, start: torch.Tensor, mask: torch.Tensor, p_cap: int) -> SimState:
+    """p_cap slots from `start` (clamped to the state), dead where `mask`
+    is false (mass 0, ids -1)."""
+    n_cap = state.num_particles
+    idx = torch.clamp(start + torch.arange(p_cap, device=start.device), 0, n_cap - 1)
+    m = mask[idx]
+    return SimState(pos=state.pos[:, idx], vel=state.vel[:, idx], C=state.C[:, :, idx],
+                    mass=torch.where(m, state.mass[idx], 0.0),
+                    ids=torch.where(m, state.ids[idx], -1))
+
+
+def _land(state: SimState, buf: SimState, offset: int) -> SimState:
+    """`buf` written into the slots from `offset`."""
+    out = SimState(pos=state.pos.clone(), vel=state.vel.clone(), C=state.C.clone(),
+                   mass=state.mass.clone(), ids=state.ids.clone())
+    k = buf.num_particles
+    out.pos[:, offset:offset + k] = buf.pos
+    out.vel[:, offset:offset + k] = buf.vel
+    out.C[:, :, offset:offset + k] = buf.C
+    out.mass[offset:offset + k] = buf.mass
+    out.ids[offset:offset + k] = buf.ids
+    return out
+
+
+def _to(state: SimState, dev) -> SimState:
+    return SimState(pos=state.pos.to(dev), vel=state.vel.to(dev), C=state.C.to(dev),
+                    mass=state.mass.to(dev), ids=state.ids.to(dev))
+
+
+def sharded_substep(slabs: list[SimState], config: SimConfig, sconf: ShardConfig,
+                    fp: FluidParams, interactions: Sequence[Interaction] = ()) -> list[SimState]:
+    """One substep on every slab (the module section's comment)."""
+    n = len(slabs)
+    loc = sconf.local_planes(config)
+    pc = _plane_cells(config)
+    cfg_local = _local_config(config, sconf)
+    p_cap = sconf.migration_capacity
+
+    # sort by local cell id (dead last), then P2G pass 1 on the padded grid
+    sorted_, geoms, segs, grids = [], [], [], []
+    for a, st in enumerate(slabs):
+        x0 = a * loc
+        g0 = _local_geometry(st.pos, st.mass > 0, config, x0)
+        order = torch.argsort(g0.flat_base, stable=True)
+        st = st.permute(order)
+        lcid = g0.flat_base[order]
+        cells = torch.arange(cfg_local.num_cells + 1, dtype=lcid.dtype, device=lcid.device)
+        seg = torch.searchsorted(lcid, cells).to(torch.int32)
+        geom = _local_geometry(st.pos, st.mass > 0, config, x0)
+        sorted_.append(st)
+        geoms.append(geom)
+        segs.append(seg)
+        grids.append(binned.p2g_pass1(st, geom, seg, cfg_local))
+
+    grids = _halo_fill(_halo_reduce(grids, loc, pc), loc, pc, mom_too=False)
+    grids = [binned.p2g_pass2(st, geom, seg, g, cfg_local, fp)
+             for st, geom, seg, g in zip(sorted_, geoms, segs, grids)]
+    grids = _halo_reduce(grids, loc, pc, mom_only=True)
+    grids = [_update_grid_local(g, cfg_local, config, fp, a * loc) for a, g in enumerate(grids)]
+    grids = _halo_fill(grids, loc, pc, mom_too=True)
+
+    stayed, lefts, rights = [], [], []
+    for a, (st, geom, seg, g) in enumerate(zip(sorted_, geoms, segs, grids)):
+        x0 = a * loc
+        alive = st.mass > 0
+        # gather on the local padded grid, the tail in global coordinates
+        vel_g, C_g = reference.g2p_gather(g, geom, cfg_local)
+        new = reference.g2p_tail(st, vel_g, C_g, config, fp, interactions)
+        # dead slots stay parked inside the slab, so their cell id stays local
+        park = torch.tensor([x0 + loc / 2.0] + [r / 2.0 for r in config.grid_res[1:]],
+                            dtype=new.pos.dtype, device=new.pos.device)[:, None]
+        st = SimState(pos=torch.where(alive, new.pos, park), vel=torch.where(alive, new.vel, 0.0),
+                      C=torch.where(alive, new.C, 0.0), mass=st.mass, ids=st.ids)
+        # leftward movers sit at the front of the sorted order, rightward
+        # ones at the live tail: a window of p_cap each crosses over; the
+        # rest stay alive and try again next substep
+        new_bx = torch.clamp(torch.floor(st.pos[0]).to(torch.int32), 1, config.grid_res[0] - 2)
+        go_left = alive & (new_bx < x0)
+        go_right = alive & (new_bx >= x0 + loc)
+        n_live = seg[-1].long()
+        r_start = torch.clamp_min(n_live - p_cap, 0)
+        lefts.append(_window(st, torch.zeros_like(r_start), go_left, p_cap))
+        rights.append(_window(st, r_start, go_right, p_cap))
+        i = torch.arange(st.num_particles, device=alive.device)
+        exported = (go_left & (i < p_cap)) | (go_right & (i >= r_start) & (i < n_live))
+        stayed.append(SimState(pos=st.pos, vel=st.vel, C=st.C,
+                               mass=torch.where(exported, 0.0, st.mass), ids=st.ids))
+
+    out = []
+    for a, st in enumerate(stayed):
+        dev = st.pos.device
+        # received in the tail 2 * p_cap slots, which live particles never
+        # reach (n_live <= n_cap - 2 * p_cap); the wrapped ends carry none
+        from_left = _to(rights[(a - 1) % n], dev)
+        from_right = _to(lefts[(a + 1) % n], dev)
+        if a == 0:
+            from_left.mass = torch.zeros_like(from_left.mass)
+        if a == n - 1:
+            from_right.mass = torch.zeros_like(from_right.mass)
+        n_cap = st.num_particles
+        st = _land(st, from_left, n_cap - 2 * p_cap)
+        out.append(_land(st, from_right, n_cap - p_cap))
+    return out
+
+
+def make_sharded_step(config: SimConfig, sconf: ShardConfig, mesh: SlabMesh,
+                      substeps: int | None = None):
+    """The sharded frame step (state, fluid, interactions) -> state over a
+    ShardedSimState: `substeps` (default config.substeps) sort-based
+    substeps on the mesh's slabs."""
+    if mesh.n != sconf.n_shards:
+        raise ValueError(f"the mesh has {mesh.n} slabs, the shard config {sconf.n_shards}")
+    nsub = substeps if substeps is not None else config.substeps
+
+    def step(state: ShardedSimState, fp: FluidParams,
+             interactions: Sequence[Interaction] = ()) -> ShardedSimState:
+        slabs = state.slabs
+        for _ in range(nsub):
+            slabs = sharded_substep(slabs, config, sconf, fp, interactions)
+        return ShardedSimState(slabs)
+
+    return step
+
+
+def shard_scene(scene, sconf: ShardConfig, mesh: SlabMesh) -> ShardedSimState:
+    """A scene's particles distributed into each slab's fixed-capacity
+    arrays (dead slots parked inside the slab), on the mesh's devices."""
+    config = scene.config
+    n = sconf.n_shards
+    loc = config.grid_res[0] // n
+    n_cap, p_cap = sconf.local_capacity, sconf.migration_capacity
+    if n_cap <= 0 or p_cap < 0:
+        raise ValueError("local_capacity must be positive and migration_capacity >= 0")
+    st = scene.state
+    pos, vel, C = (t.detach().cpu().float() for t in (st.pos, st.vel, st.C))
+    mass, ids = st.mass.detach().cpu().float(), st.ids.detach().cpu()
+    shard_of = torch.clamp(torch.floor(pos[0]).to(torch.int64) // loc, 0, n - 1)
+    dim = config.dim
+    slabs = []
+    for s, dev in enumerate(mesh.devices):
+        sel = torch.nonzero(shard_of == s).squeeze(1)
+        cnt = int(sel.numel())
+        if cnt > n_cap - 2 * p_cap:
+            raise ValueError(f"shard {s}: {cnt} particles exceed capacity "
+                             f"{n_cap} - 2*{p_cap}")
+        g_pos = torch.zeros((dim, n_cap))
+        g_pos[:, :cnt] = pos[:, sel]
+        g_pos[0, cnt:] = (s + 0.5) * loc
+        for a in range(1, dim):
+            g_pos[a, cnt:] = config.grid_res[a] / 2.0
+        g_vel = torch.zeros((dim, n_cap))
+        g_vel[:, :cnt] = vel[:, sel]
+        g_C = torch.zeros((dim, dim, n_cap))
+        g_C[:, :, :cnt] = C[:, :, sel]
+        g_mass = torch.zeros(n_cap)
+        g_mass[:cnt] = mass[sel]
+        g_ids = torch.full((n_cap,), -1, dtype=torch.int32)
+        g_ids[:cnt] = ids[sel]
+        slabs.append(_to(SimState(pos=g_pos, vel=g_vel, C=g_C, mass=g_mass, ids=g_ids), dev))
+    return ShardedSimState(slabs)
+
+
+def gather_live(state: ShardedSimState) -> SimState:
+    """Every slab's live slots in one SimState on the first slab's device,
+    in emission order (for analysis and comparison)."""
+    dev = state.slabs[0].pos.device
+    s = SimState(*(torch.cat([getattr(sl, f).to(dev) for sl in state.slabs], dim=-1)
+                   for f in ("pos", "vel", "C", "mass", "ids")))
+    return s.permute(torch.nonzero(s.mass > 0).squeeze(1)).by_id()
+
+
+def demo_sharded_step(n_slabs: int, device="cuda") -> None:
+    """One sort-based sharded substep of a tiny scene on n_slabs slabs of
+    one device (domain.py:477-514): no particle lost or duplicated, ids
+    equal to the binned engine's and pos within 2e-3."""
+    from ..models.scenes import fluid_3d
+    from ..ops.step import make_step
+
+    mesh = SlabMesh.on(device, n_slabs)
+    scene = fluid_3d(grid_res=16, box=8.0, spacing=1.0, device=device)
+    config = scene.config.replace(substeps=1)
+    sconf = ShardConfig(n_shards=n_slabs,
+                        local_capacity=scene.state.num_particles + 2 * 96 + 64,
+                        migration_capacity=96)
+    out = make_sharded_step(config, sconf, mesh, substeps=1)(
+        shard_scene(scene._replace(config=config), sconf, mesh), scene.fluid)
+    live = gather_live(out)
+    want = make_step(config, mode="binned", substeps=1)(scene.state, scene.fluid).by_id()
+    if live.num_particles != scene.state.num_particles or not torch.equal(live.ids, want.ids):
+        raise AssertionError(f"demo_sharded_step({n_slabs}): {live.num_particles} live of "
+                             f"{scene.state.num_particles}, or ids out of order")
+    err = float((live.pos - want.pos).abs().max())
+    if not err <= 2e-3:
+        raise AssertionError(f"demo_sharded_step({n_slabs}): max |pos - binned| {err}")

@@ -1,7 +1,7 @@
 """The SSFR renderer of the port (``mpm_tpu.render``): kernel X
 (render/extract_kernel.py) and kernel BL (render/blur_kernel.py) in CUDA,
-the rest in plain PyTorch; every render mode of the JAX package but
-legacy_quad, the thickness pass, cubemap files, the particle-array
+the rest in plain PyTorch; every render mode of the JAX package (legacy_quad
+in render/legacy.py), the thickness pass, cubemap files, the particle-array
 renderer; and the 2D frames of render/render2d.py."""
 
 from .background import BackgroundScene, load_cubemap, make_cubemap_sampler
@@ -10,6 +10,7 @@ from .image import write_png
 from .pipeline import (
     RENDER_DEFAULT,
     RENDER_DEPTH_DEBUG,
+    RENDER_LEGACY_QUAD,
     RENDER_LIT_SPHERES,
     RENDER_MODES,
     RENDER_NONE,
@@ -36,6 +37,7 @@ __all__ = [
     "Camera",
     "RENDER_DEFAULT",
     "RENDER_DEPTH_DEBUG",
+    "RENDER_LEGACY_QUAD",
     "RENDER_LIT_SPHERES",
     "RENDER_MODES",
     "RENDER_NONE",

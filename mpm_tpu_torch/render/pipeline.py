@@ -9,10 +9,11 @@ Modes (screen_space_fluid_rendering.gd:5-7): "default" (full SSFR, with
 the thickness pass when SSFRParams.thickness_pass), "velocity_spheres"
 (depth-tested spheres coloured by |vel|), "lit_spheres" (lit impostor
 spheres), "depth_debug" (the blurred depth in grey, also
-SSFRParams.debug_draw_depth) and "none" (the background). The JAX
-package's "legacy_quad" raises NotImplementedError (ROADMAP.md). Bucket
-states render through render_frame_buckets or make_full_frame_step; a
-particle array (the `--sphere-render-ratio` path) through render_frame.
+SSFRParams.debug_draw_depth), "none" (the background) and "legacy_quad"
+(the reference's dormant packed-depth screen-quad chain, render/legacy.py;
+bucket states only). Bucket states render through render_frame_buckets or
+make_full_frame_step; a particle array (the `--sphere-render-ratio` path,
+and the linear states of modes reference and binned) through render_frame.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ RENDER_DEPTH_DEBUG = "depth_debug"
 RENDER_NONE = "none"
 RENDER_LEGACY_QUAD = "legacy_quad"
 RENDER_MODES = (RENDER_DEFAULT, RENDER_VELOCITY_SPHERES, RENDER_LIT_SPHERES,
-                RENDER_DEPTH_DEBUG, RENDER_NONE)  # the modes this port renders
+                RENDER_DEPTH_DEBUG, RENDER_NONE, RENDER_LEGACY_QUAD)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +69,6 @@ class RenderConfig:
 
 
 def check_mode(rc: RenderConfig) -> None:
-    if rc.mode == RENDER_LEGACY_QUAD:
-        raise NotImplementedError(
-            "render mode 'legacy_quad' is still to port (ROADMAP.md, queue 1, item "
-            "'the dormant reference paths')")
     if rc.mode not in RENDER_MODES:
         raise ValueError(f"unknown render mode {rc.mode!r}")
     if rc.quality not in ("cell", "particle"):
@@ -215,17 +212,28 @@ def _slot_splats(state, view, rc: RenderConfig, grid_res):
 
 def render_frame_buckets(state, view, rc: RenderConfig, bg=None,
                          grid_res: tuple[int, ...] | None = None,
-                         cubemap_faces=None) -> torch.Tensor:
+                         cubemap_faces=None, num_particles: int | None = None) -> torch.Tensor:
     """A bucket state's frame [H, W, 3]: kernel X reduces each cell to its
     nearest particle (quality "cell"), or every live slot feeds the
     z-buffer (quality "particle"; with rc.surface_bands only the shell's
     slots, which needs grid_res; the thickness pass then deposits kernel
-    X's cell splats)."""
+    X's cell splats). Mode legacy_quad draws render/legacy.legacy_quad_frame,
+    whose texture is sized by `num_particles`."""
     check_mode(rc)
     if bg is None:
         bg = background_for_view(rc, view, state.pos.device)
     if rc.mode == RENDER_NONE:
         return bg[0]
+    if rc.mode == RENDER_LEGACY_QUAD:
+        from .legacy import legacy_quad_frame
+
+        if num_particles is None:
+            raise ValueError("legacy_quad mode needs num_particles (the texture contract is "
+                             "sized floor(sqrt(n)) + 1, MLSMPM3DFluidMultithreadGPU.cs:196-197)")
+        return legacy_quad_frame(state, num_particles, as_view(view, state.pos.device),
+                                 rc.camera, bg[0],
+                                 sphere_radius=rc.ssfr.particle_sphere_radius,
+                                 max_radius_px=rc.max_radius_px)
     tcells = None
     if rc.quality == "particle":
         cells = _slot_splats(state, view, rc, grid_res)

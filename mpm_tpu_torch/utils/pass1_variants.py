@@ -40,15 +40,15 @@ BUILD = build.BUILD_DIR / "variants"
 
 _TILE = "return D == 3 ? (a == 0 ? 2 : a == 1 ? 8 : 16) : (a == 0 ? 8 : 32);"
 _PREFETCH = """    SlotVals<D, VC> nx;
-    nx.load(pos, vel, Cm, mass, (size_t)(__ffs(occ) - 1) * g.C + b, KC);
+    nx.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
     while (occ) {
       const SlotVals<D, VC> sv = nx;
       occ &= occ - 1;
-      if (occ) nx.load(pos, vel, Cm, mass, (size_t)(__ffs(occ) - 1) * g.C + b, KC);
+      if (occ) nx.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
 """
 _NO_PREFETCH = """    for (; occ; occ &= occ - 1) {
       SlotVals<D, VC> sv;
-      sv.load(pos, vel, Cm, mass, (size_t)(__ffs(occ) - 1) * g.C + b, KC);
+      sv.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
 """
 _RMW = """        for (int z = 0; z < 3; ++z) {
           if (!((reach[D - 1] >> z) & 1u)) continue;

@@ -230,7 +230,7 @@ def test_cli_2d_on_cpu(tmp_path, capsys, monkeypatch):
     np.testing.assert_array_equal(read_png_rgb(str(tmp_path / "frame_00000.png")), want)
 
 
-@pytest.mark.parametrize("kw", [dict(storage_dtype="bfloat16"), dict(fixed_point=True),
+@pytest.mark.parametrize("kw", [dict(bin_capacity=72), dict(fixed_point=True),
                                 dict(grid_res=(16, 16, 16)), dict(clamp_hi_offset=1.0),
                                 dict(domain_res=(16, 32))])
 def test_2d_kernels_refuse_configs_outside_the_slice(kw):

@@ -242,7 +242,7 @@ def test_cuda_wrappers_take_plain_version_on_cpu():
 # fixed-point 3D configs run on P and F; fixed-point 2D stays outside
 @pytest.mark.parametrize("kw", [dict(fixed_point=True, grid_res=(16, 16)),
                                 dict(grid_res=(16, 16)), dict(clamp_lo=0.5),
-                                dict(bin_capacity=33)])
+                                dict(bin_capacity=65)])
 def test_kernels_refuse_configs_outside_the_slice(kw):
     with pytest.raises(NotImplementedError):
         kp.check_supported(SimConfig(grid_res=(16, 16, 16)).replace(**kw))

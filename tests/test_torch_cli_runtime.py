@@ -76,8 +76,8 @@ def test_sharded_checkpoint_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, msg", [
-    (["--mode", "reference"], "--mode reference is still to port"),
-    (["--mode", "binned"], "--mode binned is still to port"),
+    (["--mode", "reference", "--shards", "2"], "--shards requires a 3D scene on the bucket"),
+    (["--mode", "binned", "--shards", "2"], "--shards requires a 3D scene on the bucket"),
     (["--fluid", "gravity=1"], "gravity takes 3 value"),
     (["--interact", "cube=1,2,3,4"], "bad --interact"),
 ])

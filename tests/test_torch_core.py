@@ -123,8 +123,9 @@ def test_convert_round_trip(storage):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the parallel package included),
-    and chip_smoke.py, leaves jax and mpm_tpu out of sys.modules."""
+    """Importing every module of the port (the parallel package, the oracle,
+    the binned engine and the legacy renderer included), and chip_smoke.py,
+    leaves jax and mpm_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mpm_tpu_torch\n"
@@ -134,7 +135,10 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpm_tpu')]\n"
         "assert not bad, bad\n"
         "assert {'mpm_tpu_torch.parallel.domain', 'mpm_tpu_torch.parallel.render',\n"
-        "        'mpm_tpu_torch.ops.cuda.p2g_shard'} <= set(sys.modules)\n"
+        "        'mpm_tpu_torch.ops.cuda.p2g_shard', 'mpm_tpu_torch.ops.reference',\n"
+        "        'mpm_tpu_torch.ops.binned', 'mpm_tpu_torch.ops.segsum',\n"
+        "        'mpm_tpu_torch.ops.binning', 'mpm_tpu_torch.ops.transfer',\n"
+        "        'mpm_tpu_torch.render.legacy'} <= set(sys.modules)\n"
         "print('ok', len([m for m in sys.modules if m.startswith('mpm_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

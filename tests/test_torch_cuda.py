@@ -3,7 +3,9 @@ card, at the small scene of tests/test_fused.py, P and F also in
 fixed-point mode, the per-pass kernels A, B, D and E there too, the two
 sharded stages of P and F's shard mode (and the sharded step against the
 unsharded one), and the 2D kernels sim2d and migrate2d at dam_break_2d's
-size. Every test needs the card and skips
+size (f32 and bf16 vel/C); mode="cuda"'s routing to the plain engine, F and
+sim2d with 12 spheres, and the oracle, the binned engine, the sort-based
+slabs and legacy_quad on the card. Every test needs the card and skips
 without one. They import no JAX, so on a machine without JAX run them with
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -51,7 +53,7 @@ def dev():
 
 def _scene(dev, storage="float32", grid_res=None, spacing=0.8, **kw):
     sc = fluid_3d(grid_res=16, box=8.0, spacing=spacing, device=dev)
-    config = sc.config.replace(bin_capacity=8, storage_dtype=storage, **kw)
+    config = sc.config.replace(**{"bin_capacity": 8, "storage_dtype": storage, **kw})
     if grid_res is not None:
         config = window_config(config.replace(grid_res=grid_res), 16)
     return config, sc.fluid, bucketed.from_simstate(sc.state, config)
@@ -358,10 +360,132 @@ def test_golden_anchor_2d(dev):
     assert int(state.deferred) == 0 and int(state.lost) == 0
 
 
-def test_2d_kernels_refuse_bf16(dev):
+def test_2d_kernels_refuse_fixed_point(dev):
+    """A direct call outside the 2D kernels' envelope raises; mode="cuda"
+    runs such a config on the plain engine (test_route_runs_the_plain_engine)."""
     config, fluid, state = _scene2d(dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k2d.sim2d(state, config.replace(storage_dtype="bfloat16"), fluid)
+    with pytest.raises(NotImplementedError, match="fixed-point"):
+        k2d.sim2d(state, config.replace(fixed_point=True), fluid)
+
+
+def _assert_bit_equal(got, want):
+    for f in ("pos", "vel", "C", "mass", "ids"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                                                  else a, b.view(torch.int16)
+                                                  if b.dtype == torch.bfloat16 else b), f
+    for name in ("lost", "cfl_clamped", "deferred", "ceiling"):
+        assert int(getattr(got, name)) == int(getattr(want, name)), name
+
+
+@pytest.mark.parametrize("case", list(CASES_2D))
+def test_2d_kernels_bf16_bit_equal(dev, case):
+    """bf16 vel/C in the 2D pair (kernels2d.py:76-77, 476-477): sim2d and
+    migrate2d equal their plain versions on bf16 storage bit for bit, and
+    the whole substep through make_step(mode="cuda") too."""
+    name, inter = CASES_2D[case]
+    config, fluid, state = _scene2d(dev, name, storage_dtype="bfloat16")
+    assert state.vel.dtype == torch.bfloat16
+    state = _warm(state, config, fluid, 4)
+    n0 = (k2d.sim2d_launches, k2d.migrate2d_launches)
+    got = k2d.sim2d(state, config, fluid, inter)
+    want = k2d.sim2d_plain(state, config, fluid, inter)
+    _assert_bit_equal(got, want)
+    _assert_bit_equal(k2d.migrate2d(want, config), k2d.migrate2d_plain(want, config))
+    torch.cuda.synchronize()
+    assert (k2d.sim2d_launches, k2d.migrate2d_launches) == (n0[0] + 1, n0[1] + 1)
+    _assert_bit_equal(make_step(config, mode="cuda", substeps=5)(state, fluid, inter),
+                      make_step(config, mode="bucketed", substeps=5)(state, fluid, inter))
+
+
+def _spheres(dim, n=12, seed=3):
+    """n spheres over the small scenes' fluid, both kinds, one inactive."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        c = rng.uniform(4.0, 12.0 if dim == 3 else 40.0, dim).tolist()
+        make = Interaction.sphere if i % 2 else Interaction.mouse
+        out.append(make(c, radius=float(rng.uniform(2.0, 6.0)),
+                        strength=float(rng.uniform(0.1, 0.6)), active=0.0 if i == 5 else 1.0))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_kernels_take_twelve_spheres(dev, storage):
+    """Kernel F and sim2d read any number of spheres from a device array,
+    in list order: with 12 both equal their plain versions bit for bit."""
+    config, fluid, state = _scene(dev, storage)
+    state = _warm(state, config, fluid)
+    grid = kp.p2g_update_plain(state, config, fluid)
+    inter = _spheres(3)
+    _assert_bit_equal(kf.g2p_migrate(state, grid, config, fluid, inter),
+                      kf.g2p_migrate_plain(state, grid, config, fluid, inter))
+    config2, fluid2, state2 = _scene2d(dev, storage_dtype=storage)
+    state2 = _warm(state2, config2, fluid2, 4)
+    inter2 = _spheres(2)
+    _assert_bit_equal(k2d.sim2d(state2, config2, fluid2, inter2),
+                      k2d.sim2d_plain(state2, config2, fluid2, inter2))
+
+
+def test_route_runs_the_plain_engine(dev):
+    """Fixed-point 2D, which the JAX package runs on its XLA engine, runs
+    through mode="cuda" on the plain engine, bit-equal to mode="bucketed",
+    launching no kernel."""
+    config, fluid, state = _scene2d(dev, fixed_point=True)
+    n0 = dict(kernel_counts())
+    got = make_step(config, mode="cuda", substeps=3)(state, fluid)
+    want = make_step(config, mode="bucketed", substeps=3)(state, fluid)
+    torch.cuda.synchronize()
+    assert kernel_counts() == n0
+    _assert_bit_equal(got, want)
+    assert int(got.lost) == 0
+
+
+WIDE_CASES = {"k40_3d": ("3d", dict(bin_capacity=40)),
+              "k40_fixed_3d": ("3d", dict(bin_capacity=40, fixed_point=True)),
+              "k64_dense_3d": ("3d", dict(bin_capacity=64, spacing=0.3)),
+              "k40_2d": ("2d", dict(bin_capacity=40))}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_route_k_above_32_runs_the_kernels(dev, case):
+    """K > 32 takes the kernels' 64-bit slot masks: mode="cuda" launches
+    them and equals mode="bucketed" bit for bit. The dense case (spacing
+    0.3: 27 to 64 particles a cell) sets slot bits up to 63."""
+    kind, kw = WIDE_CASES[case]
+    if kind == "2d":
+        config, fluid, state = _scene2d(dev, **kw)
+    else:
+        config, fluid, state = _scene(dev, **kw)
+    if case == "k64_dense_3d":
+        assert int((state.mass > 0).sum(0).max()) > 32
+    n0 = dict(kernel_counts())
+    got = make_step(config, mode="cuda", substeps=3)(state, fluid)
+    want = make_step(config, mode="bucketed", substeps=3)(state, fluid)
+    torch.cuda.synchronize()
+    n1 = kernel_counts()
+    assert all(n1[k] > n0[k] for k in (("sim2d", "migrate2d") if kind == "2d" else ("p2g_update", "g2p_migrate")))
+    _assert_bit_equal(got, want)
+
+
+def test_route_beyond_the_kernels_raises(dev):
+    """K = 72 and clamps into the edge planes raise under mode="cuda"; a
+    windowed config outside the envelope (fixed-point 2D with a domain)
+    raises ValueError, as in the JAX package."""
+    for kw in (dict(bin_capacity=72), dict(clamp_lo=0.5)):
+        config, fluid, state = _scene(dev, **kw)
+        with pytest.raises(NotImplementedError, match="mode='bucketed'"):
+            make_step(config, mode="cuda", substeps=1)(state, fluid)
+    config, fluid, state = _scene2d(dev, fixed_point=True)
+    config = config.replace(domain_res=(config.grid_res[0], 2 * config.grid_res[1]))
+    with pytest.raises(ValueError, match="windowed"):
+        make_step(config, mode="cuda", substeps=1)(state, fluid)
+
+
+def kernel_counts():
+    from mpm_tpu_torch.__main__ import kernel_launches
+
+    return kernel_launches()
 
 
 # ---- render kernels: X (extract), F's splat emission, BL (blur) ----------
@@ -920,3 +1044,90 @@ def test_sim2d_pass1_stress_matches_plain(dev, cells):
     torch.cuda.synchronize()
     assert k2d.sim2d_launches == n0 + 1
     _assert_bit_equal(got, k2d.sim2d_plain(state, config, fluid, ()))
+
+
+# ---- the oracle, the binned engine, the sort-based slabs, legacy_quad ------
+
+def test_oracle_golden_replay_on_the_card(dev):
+    """The golden 2D replay through the oracle (the sorting accumulating
+    index_put_ on the card): frames 1, 5, 10 within 2e-3 of the fixture,
+    the same bits on two runs."""
+    data = np.load(GOLDEN_2D)
+    sc = dam_break_2d(device=dev)
+    step = make_step(sc.config, mode="reference")
+    runs = []
+    for _ in range(2):
+        st = sc.state
+        for frame in range(1, 11):
+            st = step(st, sc.fluid)
+            if frame in (1, 5, 10):
+                np.testing.assert_allclose(st.by_id().pos.cpu().numpy(), data[f"pos_f{frame}"],
+                                           atol=2e-3)
+        runs.append(st)
+    assert torch.equal(runs[0].pos, runs[1].pos) and torch.equal(runs[0].vel, runs[1].vel)
+
+
+@pytest.mark.parametrize("scene", ["dam_break_2d", "fluid_3d_fixed_point"])
+def test_binned_matches_oracle_on_the_card(dev, scene):
+    """One substep: ids equal, vel/C within 1e-5, pos within max(1e-6, one
+    float32 ulp) (the oracle adds a cell's run in float32, binned in
+    float64); fixed point bit-equal across two runs."""
+    from mpm_tpu_torch.models.scenes import get_scene
+
+    sc = get_scene(scene, device=dev)
+    a = make_step(sc.config, mode="reference", substeps=1)(sc.state, sc.fluid).by_id()
+    b = make_step(sc.config, mode="binned", substeps=1)(sc.state, sc.fluid).by_id()
+    assert torch.equal(a.ids, b.ids)
+    ulp = torch.clamp_min(a.pos.abs() * 2.0 ** -23, 1e-6)
+    assert bool(((a.pos - b.pos).abs() <= ulp).all())
+    for x, y in ((a.vel, b.vel), (a.C, b.C)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+    if sc.config.fixed_point:
+        c = make_step(sc.config, mode="binned", substeps=1)(sc.state, sc.fluid).by_id()
+        assert torch.equal(b.pos, c.pos) and torch.equal(b.vel, c.vel)
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_sorted_shard_step_on_the_card(dev, fixed):
+    """tests/test_sharded.py's small scene on 4 slabs of the card against
+    the binned engine: ids equal, pos within 2e-3; fixed point bit-exact."""
+    from mpm_tpu_torch.models.scenes import fluid_3d_fixed_point
+
+    f = fluid_3d_fixed_point if fixed else fluid_3d
+    sc = f(grid_res=16, box=10.0, spacing=1.0, device=dev)
+    sc = sc._replace(config=sc.config.replace(substeps=2))
+    n = sc.state.num_particles
+    sconf = domain.ShardConfig(n_shards=4, local_capacity=n + 2 * 128 + 64,
+                               migration_capacity=128)
+    mesh = domain.SlabMesh.on(dev, 4)
+    state = domain.shard_scene(sc, sconf, mesh)
+    step = domain.make_sharded_step(sc.config, sconf, mesh, substeps=2)
+    ref = make_step(sc.config, mode="binned", substeps=2)
+    s_ref = sc.state
+    for _ in range(2):
+        state, s_ref = step(state, sc.fluid), ref(s_ref, sc.fluid)
+    live, want = domain.gather_live(state), s_ref.by_id()
+    assert torch.equal(live.ids, want.ids)
+    if fixed:
+        assert torch.equal(live.pos, want.pos) and torch.equal(live.vel, want.vel)
+    else:
+        torch.testing.assert_close(live.pos, want.pos, rtol=0, atol=2e-3)
+    domain.demo_sharded_step(4, dev)
+
+
+def test_legacy_quad_frame_on_the_card(dev):
+    """render_frame_buckets(mode="legacy_quad") on the card: the fluid mask
+    equal to the CPU frame's, the grey within 1e-4 (the exponentials of two
+    devices)."""
+    from mpm_tpu_torch.render import Camera, RenderConfig, default_view, render_frame_buckets
+
+    config, fluid, state = _scene(dev)
+    n = int((state.mass > 0).sum())
+    rc = RenderConfig(camera=Camera(width=128, height=96), mode="legacy_quad")
+    view = default_view((16, 16, 16))
+    got = render_frame_buckets(state, view, rc, num_particles=n).cpu()
+    cpu_state = bucketed.BucketState(*[t.cpu() for t in (
+        state.pos, state.vel, state.C, state.mass, state.ids, state.lost, state.cfl_clamped,
+        state.deferred, state.ceiling)])
+    want = render_frame_buckets(cpu_state, view, rc, num_particles=n)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

@@ -29,6 +29,7 @@ from mpm_tpu_torch.ops import bucketed as tb
 from mpm_tpu_torch.ops.cuda import migrate_planes as ke
 from mpm_tpu_torch.ops.cuda import planes
 from mpm_tpu_torch.ops.cuda import step as cuda_step
+from mpm_tpu_torch.ops.cuda.migrate_planes import check_planes
 from mpm_tpu_torch.ops.step import make_step, resolve_substep
 
 torch.set_num_threads(2)
@@ -158,10 +159,22 @@ def test_env_selects_the_per_pass_substep(monkeypatch):
                                     (dict(storage_dtype="bfloat16"), NotImplementedError),
                                     (dict(fixed_point=True), NotImplementedError)])
 def test_per_pass_substep_refuses(kw, err, monkeypatch):
-    """Windowed, bf16 and fixed-point configs raise, naming mode="cuda";
-    nothing runs the plain engine in their place."""
+    """The per-pass kernels refuse windowed, bf16 and fixed-point configs,
+    naming mode="cuda". Under MPM_PALLAS_OLD=1 mode="cuda" still raises for
+    the windowed config (they would not keep the ceiling band), and runs
+    bf16 and fixed point on the plain engine, bit-equal to mode="bucketed",
+    as bucket_kernels.substep sends them to the XLA engine."""
     _, tcfg, _, t, _ = _small()
-    monkeypatch.setenv("MPM_PALLAS_OLD", "1")
-    s = tb.from_simstate(t.state, tcfg)
+    cfg = tcfg.replace(**kw)
     with pytest.raises(err, match="mode=\"cuda\"" if err is NotImplementedError else "ceiling"):
-        make_step(tcfg.replace(**kw), mode="cuda", substeps=1)(s, t.fluid)
+        check_planes(cfg)
+    monkeypatch.setenv("MPM_PALLAS_OLD", "1")
+    if err is ValueError:
+        with pytest.raises(err, match="ceiling"):
+            make_step(cfg, mode="cuda", substeps=1)(tb.from_simstate(t.state, tcfg), t.fluid)
+        return
+    s = tb.from_simstate(t.state, cfg)
+    got = make_step(cfg, mode="cuda", substeps=2)(s, t.fluid)
+    want = make_step(cfg, mode="bucketed", substeps=2)(s, t.fluid)
+    for f in ("pos", "vel", "C", "mass", "ids", "lost", "deferred"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -243,13 +243,17 @@ def test_crop_frame_bit_exact(quality):
 
 
 def test_modes_not_ported_raise(pool):
-    """legacy_quad, the one mode still to port, raises with its ROADMAP
-    item; the velocity, lit-sphere and depth modes render a frame that
+    """Every mode is ported: legacy_quad raises only without the particle
+    count its texture needs, as the JAX package's does, and renders with
+    it; the velocity, lit-sphere and depth modes render a frame that
     differs from the background; "none" is the background."""
     jcfg, jfluid, js = pool
     _, _, state = to_port(jcfg, jfluid, js)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame_buckets(state, VIEW, RenderConfig(camera=Camera(64, 32), mode="legacy_quad"))
+    rc = RenderConfig(camera=Camera(64, 32), mode="legacy_quad")
+    with pytest.raises(ValueError, match="num_particles"):
+        render_frame_buckets(state, VIEW, rc)
+    img = render_frame_buckets(state, VIEW, rc, num_particles=int((state.mass > 0).sum()))
+    assert img.shape == (32, 64, 3) and bool(torch.isfinite(img).all())
     for mode in ("velocity_spheres", "lit_spheres", "depth_debug"):
         rc = RenderConfig(camera=Camera(64, 32), mode=mode)
         img = render_frame_buckets(state, VIEW, rc)

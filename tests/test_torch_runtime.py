@@ -99,20 +99,17 @@ def test_interactions_match_jax(grid, flags):
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_ninth_interaction_refused(dim):
-    """The JAX package takes any number of spheres; kernel F and sim2d take
-    at most 8 (MAX_INTER), so the port's CLI refuses a ninth, the orbit
-    sphere and the fly pointer included."""
+    """Neither package caps the spheres: kernel F and sim2d read them from a
+    device array, so the port's CLI takes nine and more, the orbit sphere
+    included, as the JAX CLI does, in the same order; a malformed sphere
+    is refused."""
     grid = (32,) * dim
     sphere = "sphere=" + ",".join(["16"] * dim) + ",4"
-    assert len(j_interactions(ns(interact=[sphere] * 8, orbit_sphere=True),
-                              JConfig(grid_res=grid))[0]) == 9
-    assert len(t_interactions(ns(interact=[sphere] * 7, orbit_sphere=True),
-                              TConfig(grid_res=grid), reserved=0)[0]) == 8
-    for kw, reserved in ((dict(interact=[sphere] * 9), 0),
-                         (dict(interact=[sphere] * 8, orbit_sphere=True), 0),
-                         (dict(interact=[sphere] * 7, orbit_sphere=True), 1)):
-        with pytest.raises(SystemExit, match="at most 8"):
-            t_interactions(ns(**kw), TConfig(grid_res=grid), reserved=reserved)
+    for kw in (dict(interact=[sphere] * 9), dict(interact=[sphere] * 12, orbit_sphere=True)):
+        jfn = j_interactions(ns(**kw), JConfig(grid_res=grid))[1]
+        tfn = t_interactions(ns(**kw), TConfig(grid_res=grid))[1]
+        assert len(tfn(0)) == len(jfn(0)) == len(kw["interact"]) + int("orbit_sphere" in kw)
+        assert_inters_equal(jfn(3), tfn(3))
     with pytest.raises(SystemExit, match="bad --interact"):
         t_interactions(ns(interact=["sphere=1,2"]), TConfig(grid_res=grid))
 

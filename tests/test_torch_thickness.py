@@ -244,16 +244,16 @@ def _cli(tmp, name, *extra):
 def test_render_cli_modes_and_ratio(cli_base, capsys):
     """--render-mode velocity_spheres, and --sphere-render-ratio 0.5 (the
     particle-array path) with lit spheres, each change the frame;
-    legacy_quad and --shards with a ratio below 1 or mode none are
-    refused."""
+    legacy_quad with a ratio below 1 (it reads the bucket state's texture)
+    and --shards with a ratio below 1 or mode none are refused."""
     tmp, base = cli_base
     assert not np.array_equal(_cli(tmp, "velocity", "--render-mode", "velocity_spheres"), base)
     assert not np.array_equal(_cli(tmp, "ratio", "--sphere-render-ratio", "0.5",
                                    "--render-mode", "lit_spheres"), base)
     text = capsys.readouterr().out
     assert "render-mode=velocity_spheres" in text and "sphere-render-ratio=0.5" in text
-    with pytest.raises(SystemExit, match="legacy_quad is still to port"):
-        _cli(tmp, "legacy", "--render-mode", "legacy_quad")
+    with pytest.raises(SystemExit, match="legacy_quad reads the bucket-state texture"):
+        _cli(tmp, "legacy", "--render-mode", "legacy_quad", "--sphere-render-ratio", "0.5")
     for extra, msg in ((["--sphere-render-ratio", "0.5"], "--sphere-render-ratio 1.0"),
                        (["--render-mode", "none"], "a drawing --render-mode")):
         with pytest.raises(SystemExit, match=msg):

@@ -109,6 +109,28 @@ def reciprocal_decode():
 
 
 @contextmanager
+def reassociated_gather():
+    """The oracle's G2P tap value w * decode(x) as XLA computes it in 3D
+    under jit: the decode's multiply by the reciprocal of the multiplier
+    moved onto the weight, x * (w * (1 / mult)). Float grids unchanged."""
+    from mpm_tpu_torch.ops import reference
+
+    own = reference.weighted_decode
+
+    def weighted_decode(w, x, config):
+        if not config.fixed_point:
+            return own(w, x, config)
+        inv = np.float32(1.0) / np.float32(config.fixed_point_mult)
+        return x.to(w.dtype) * (w * float(inv))
+
+    reference.weighted_decode = weighted_decode
+    try:
+        yield
+    finally:
+        reference.weighted_decode = own
+
+
+@contextmanager
 def folded_tops():
     """The port's clamp tops as XLA computes them: x + (n - CFL_EPS)."""
     from mpm_tpu_torch.ops import bucketed
