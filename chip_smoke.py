@@ -29,14 +29,21 @@ guard against the bare step and rolls a poisoned run back, runs the
 orbit-camera render loop (each frame equal to the plain chain's), runs the
 CLI (`--shards 1`, the render flags, and the run-time flags: spheres,
 fluid overrides, metrics, checkpoints and resume, the guard, the fly and
-orbit cameras and the HUD), runs configs outside the kernels' envelope
-through mode="cuda" on the plain engine ([route]), holds kernel F and
+orbit cameras and the HUD), runs configs through mode="cuda" against
+mode="bucketed" ([route]: the plain engine where the JAX package runs XLA;
+the kernels above 32 and above 64 slots a cell on dense scenes, K up to
+200, per pass and on 4 slabs too), drives P, F and the 2D pair above 64
+slots through mode="cuda" and times them at K = 72 and 128, and P and F
+on the same particles at K = 64, 72 and 128 ([wide-k]), holds kernel F and
 sim2d with 12 spheres against their plain versions ([inter-many]), runs
 the 2D pair on bf16 vel/C ([bf16-2d]), the oracle on the golden replay and
 against the binned engine at full size ([oracle]), the binned engine
 ([binned]), the sort-based sharded step on 4 slabs ([sorted-shard]) and
-the CLI's reference, binned and legacy_quad modes ([cli-modes]), and
-times each kernel beside its plain version and its roofline bound. Every main path runs with the launch counts set to 0 just before it
+the CLI's reference, binned and legacy_quad modes ([cli-modes]), checks
+the native frame-I/O library on this host and the 1080p `render` CLI's
+PNGs through it ([native]), runs the BASELINE ladder's rows 3a and 4a (and
+3 and 4 while the run is short; [ladder]), and times each kernel beside
+its plain version and its roofline bound. Every main path runs with the launch counts set to 0 just before it
 and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
@@ -50,16 +57,19 @@ import dataclasses
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
 from mpm_tpu_torch.__main__ import (_camera, _parse_interactions, kernel_launches,
                                     live_particles, nvidia_smi_power)
+from mpm_tpu_torch.__main__ import reset_kernel_launches as reset_launches
 from mpm_tpu_torch.core.state import Grid
 from mpm_tpu_torch.models.scenes import (benchmark_dam_break, benchmark_scene,
                                          benchmark_scene_2d, dam_break_2d, fluid_3d,
@@ -87,7 +97,7 @@ from mpm_tpu_torch.render import ssfr as rssfr
 from mpm_tpu_torch.render.flycam import SpherePointer
 from mpm_tpu_torch.render.image import read_png_rgb
 from mpm_tpu_torch.render.splat import surface_band_uncovered
-from mpm_tpu_torch.utils import roofline
+from mpm_tpu_torch.utils import roofline, wide_k
 from mpm_tpu_torch.utils.render_bench import (N_POOL, frame_windows, pool_window, recipe_360,
                                               recipe_1080, settle)
 from mpm_tpu_torch.utils.profile_2d import WINDOW_CALLS, warm_bench2d
@@ -221,13 +231,6 @@ def check_bl(depth, cam, label: str) -> float:
     phase("BL", f"{label} {tuple(depth.shape)}: max abs err {err:.3g} (bar atol 2e-4 "
           f"rtol 1e-5), bit-equal={bool(torch.equal(got, want))}, largest fsize {fmax}")
     return err, fmax
-
-
-def reset_launches() -> None:
-    kp.launches = kf.launches = kf.emit_launches = kf.shard_launches = 0
-    kx.launches = kb.launches = ks.p2g1_launches = ks.p2g2u_launches = 0
-    k2d.sim2d_launches = k2d.migrate2d_launches = 0
-    kpl.p2g1_launches = kpl.p2g2_launches = kpl.g2p_launches = ke.launches = 0
 
 
 def per_pass_step(config, substeps: int):
@@ -1319,41 +1322,91 @@ def phase_sharded_render(dev, smi: str, state, cfgw, pool, view) -> None:
           f"fluid on {share:.3f} of the crop; launches {launches} [{smi}]")
 
 
+def _route_case(cfg, b, fluid, label, kernels, step, want_fn, count: int = 3) -> str:
+    """`step(b, fluid)` (3 substeps through mode="cuda") with the counts set
+    to 0 before and read after: bit-equal to `want_fn(b, fluid)`, each
+    kernel of `kernels` launched `count` times and no other. Returns the
+    run's lost and deferred counts and its launches."""
+    torch.cuda.synchronize()
+    reset_launches()
+    got = step(b, fluid)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernel_launches().items() if v}
+    want = want_fn(b, fluid)
+    assert_bit_equal(got, want, f"[route] {label} through mode='cuda'")
+    if launched != {k: count for k in kernels}:
+        raise AssertionError(f"[route] {label}: launched {launched}, want {count} each of "
+                             f"{kernels or 'none'}")
+    return f"lost {int(got.lost)}, deferred {int(got.deferred)}, launches {launched or 'none'}"
+
+
 def phase_route(dev, smi: str) -> None:
     """[route]: make_step(mode="cuda") against mode="bucketed", 3 substeps
     bit for bit. A fixed-point 2D config (dam_break_2d, K=8), which the JAX
     package runs on its XLA engine, takes the plain engine and launches no
     kernel. K > 32 takes the kernels' 64-bit slot masks and launches them:
     fluid_3d at full size with K=40, a dense fluid_3d (16^3, spacing 0.3:
-    up to 64 particles a cell) with K=64, dam_break_2d with K=40. K=72 and
-    clamps into the edge planes raise NotImplementedError; a windowed
-    config outside the envelope raises ValueError."""
+    up to 64 particles a cell) with K=64, dam_break_2d with K=40. K > 64
+    takes the kernels' 64-slot chunks: the dense scenes of utils/wide_k.py
+    (16^3 fluid_3d, fullest cell above 64) at K = 72, 100, 128 and 200 and
+    the dense 32^2 dam_break_2d at K=72; at K=72 also the per-pass kernels
+    A, B, D and E under MPM_PALLAS_OLD=1 (against the per-pass substep of
+    their plain versions) and the shard stages and F's shard mode on 4
+    slabs (against the unsharded kernels). Clamps into the edge planes
+    raise NotImplementedError; a windowed config outside the envelope
+    raises ValueError. Each line gives the run's lost and deferred
+    counts."""
     out = []
     d2 = dam_break_2d(device=dev)
     dense = fluid_3d(grid_res=16, box=8.0, spacing=0.3, device=dev)
-    cases = ((d2, dict(fixed_point=True, bin_capacity=8), "dam_break_2d fixed", ()),
-             (fluid_3d(device=dev), dict(bin_capacity=40), "fluid_3d K=40",
-              ("p2g_update", "g2p_migrate")),
-             (dense, dict(bin_capacity=64), "dense fluid_3d K=64",
-              ("p2g_update", "g2p_migrate")),
-             (d2, dict(bin_capacity=40), "dam_break_2d K=40", ("sim2d", "migrate2d")))
-    for sc, kw, label, kernels in cases:
-        cfg = sc.config.replace(**kw)
-        b = bucketed.from_simstate(sc.state, cfg)
-        torch.cuda.synchronize()
-        reset_launches()
-        got = make_step(cfg, mode="cuda", substeps=3)(b, sc.fluid)
-        torch.cuda.synchronize()
-        launched = {k: v for k, v in kernel_launches().items() if v}
-        want = make_step(cfg, mode="bucketed", substeps=3)(b, sc.fluid)
-        assert_bit_equal(got, want, f"[route] {label} through mode='cuda'")
-        if set(launched) != set(kernels) or any(launched[k] != 3 for k in kernels):
-            raise AssertionError(f"[route] {label}: launched {launched}, want 3 each of "
-                                 f"{kernels or 'none'}")
+    pf, pair = ("p2g_update", "g2p_migrate"), ("sim2d", "migrate2d")
+    cases = [(d2.state, d2.config.replace(fixed_point=True, bin_capacity=8), d2.fluid,
+              "dam_break_2d fixed", ()),
+             (None, fluid_3d(device=dev), None, "fluid_3d K=40", pf),
+             (dense.state, dense.config.replace(bin_capacity=64), dense.fluid,
+              "dense fluid_3d K=64", pf),
+             (d2.state, d2.config.replace(bin_capacity=40), d2.fluid, "dam_break_2d K=40", pair)]
+    for st, cfg, fluid, label, kernels in cases:
+        if st is None:  # fluid_3d at full size
+            st, cfg, fluid = cfg.state, cfg.config.replace(bin_capacity=40), cfg.fluid
+        b = bucketed.from_simstate(st, cfg)
+        ran = _route_case(cfg, b, fluid, label, kernels,
+                          make_step(cfg, mode="cuda", substeps=3),
+                          make_step(cfg, mode="bucketed", substeps=3))
+        out.append(f"{label} ({cuda_step.route(cfg)}, fullest cell "
+                   f"{int((b.mass > 0).sum(0).max())}): 3 substeps bit-equal, {ran}")
+    for dim, k in ((3, 72), (3, 100), (3, 128), (3, 200), (2, 72)):
+        cfg, fluid, b = wide_k.dense_scene(dim, k, dev, grid=16 if dim == 3 else 32, warm=0)
         fill = int((b.mass > 0).sum(0).max())
-        out.append(f"{label} ({cuda_step.route(cfg)}, fullest cell {fill}): 3 substeps "
-                   f"bit-equal to bucketed, lost {int(got.lost)}, launches {launched or 'none'}")
-    for kw in (dict(bin_capacity=72), dict(clamp_lo=0.5)):
+        if fill <= 64:
+            raise AssertionError(f"[route] dense K={k}: fullest cell {fill}, want > 64")
+        kernels = pf if dim == 3 else pair
+        ran = _route_case(cfg, b, fluid, f"dense {dim}D K={k}", kernels,
+                          make_step(cfg, mode="cuda", substeps=3),
+                          make_step(cfg, mode="bucketed", substeps=3))
+        out.append(f"dense {dim}D K={k} (fullest cell {fill}): 3 substeps bit-equal, {ran}")
+    cfg, fluid, b = wide_k.dense_scene(3, 72, dev, grid=16, warm=0)
+
+    def plain_per_pass(s, fl):
+        for _ in range(3):
+            s = kpl.substep_plain(s, cfg, fl)
+        return s
+
+    ran = _route_case(cfg, b, fluid, "dense K=72 per pass",
+                      ("p2g1_planes", "p2g2_planes", "g2p_planes", "migrate_planes"),
+                      per_pass_step(cfg, 3), plain_per_pass)
+    out.append(f"dense K=72 under MPM_PALLAS_OLD=1: bit-equal to the plain per-pass substep, "
+               f"{ran}")
+    mesh = domain.SlabMesh.on(dev, SLABS)
+    sharded = domain.make_sharded_bucket_step(cfg, mesh, substeps=3)
+    ran = _route_case(
+        cfg, b, fluid, f"dense K=72 on {SLABS} slabs",
+        ("p2g1_shard", "p2g2u_shard", "g2p_migrate_shard", "g2p_migrate"),  # F counts both
+        lambda s, fl: domain.gather_bucket_state(
+            sharded(domain.shard_bucket_state(s, cfg, mesh), fl)),
+        make_step(cfg, mode="cuda", substeps=3), count=3 * SLABS)
+    out.append(f"dense K=72 on {SLABS} slabs: bit-equal to the unsharded kernels, {ran}")
+    for kw in (dict(clamp_lo=0.5), dict(clamp_hi_offset=1.0)):
         cfg = dense.config.replace(**kw)
         try:
             make_step(cfg, mode="cuda", substeps=1)(bucketed.from_simstate(dense.state, cfg),
@@ -1694,9 +1747,140 @@ def phase_cli_modes(dev, smi: str) -> None:
     phase("cli-modes", "; ".join(out) + f" [{smi}]")
 
 
+WIDE_ROWS = ((3, 72), (3, 128), (2, wide_k.WIDE_2D_K))
+FIT_KS = (64, 72, 128)
+
+
+def phase_wide_k(smi: str, timing: dict, bounds: dict) -> tuple[dict, dict]:
+    """[wide-k] (utils/wide_k.py): on the dense 32^3 fluid_3d at K = 72 and
+    128 and the dense 128^2 dam_break_2d at K = 72 (64-slot chunks, cells of
+    more than 64), 2 substeps through make_step(mode="cuda") with the launch
+    counts set to 0 before and read after (each kernel launched twice, the
+    state bit-equal to plain substeps); then on that state each kernel
+    bit-equal to its plain version and timed beside it (CUDA events, plain,
+    kernel, kernel, plain). The same on the fit 32^3 fluid_3d (at most 64 a
+    cell) at K = 64, 72 and 128, the same particles at each K; ptxas's
+    registers and spills of the chunked instantiations. Adds the dense rows
+    `<kernel>_k<K>` to `timing` and `bounds`; returns their errors and
+    launches."""
+    dev = torch.device("cuda", 0)
+    errs, launches = {}, {}
+
+    def check(r, name):
+        if r["max_abs_err"] != 0 or r["launches"] != 2:
+            raise AssertionError(f"[wide-k] {name}: max abs err {r['max_abs_err']}, "
+                                 f"{r['launches']} launches on the main path (want 0, 2)")
+        phase("wide-k", f"{name} at {r['shape']}: main path 2 substeps, {r['launches']} "
+              f"launches, bit-equal to plain; kernel {r['ms'][0]:.4f} / {r['ms'][1]:.4f} ms, "
+              f"plain {r['plain_ms'][0]:.4f} / {r['plain_ms'][1]:.4f} ms; bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B, {r['ops']} ops); "
+              f"bit-equal [{smi}]")
+
+    for dim, k in WIDE_ROWS:
+        for r in (wide_k.rows_3d if dim == 3 else wide_k.rows_2d)(k, dev):
+            name = f"{r['name']}_k{k}"
+            check(r, name)
+            errs[name], launches[name] = r["max_abs_err"], r["launches"]
+            timing[name] = (sum(r["ms"]) / 2, sum(r["plain_ms"]) / 2)
+            bounds[name] = (r["bound_ms"], r["bound_by"])
+    for k in FIT_KS:
+        for r in wide_k.rows_3d(k, dev, fit=True):
+            check(r, f"{r['name']} fit K={k}")
+    for line in wide_k.wide_resources(build.build_logs):
+        phase("wide-k", line)
+    return errs, launches
+
+
+def png_filters(path: str) -> set:
+    """The row filter bytes of an 8-bit RGB PNG file."""
+    data = open(path, "rb").read()
+    pos, idat, w = 8, b"", 0
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            w = struct.unpack(">I", body[:4])[0]
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    raw = zlib.decompress(idat)
+    return set(raw[::w * 3 + 1])
+
+
+def phase_native(smi: str, frame_u8: np.ndarray) -> None:
+    """[native]: the frame-I/O library (mpm_tpu_torch/native) built on this
+    host and loaded; ms to encode one 1920x1080 frame of the 1080p loop
+    natively (zlib level 1, "up" rows) and with the standard library (level
+    6), each decoding to the frame; then `render fluid_3d` at 1920x1080 for
+    20 frames: its ms a frame, its PNGs read back, each with the native
+    encoder's rows (filter 0, then 2)."""
+    from mpm_tpu_torch import native
+    from mpm_tpu_torch.render.image import encode_png_stdlib
+
+    if not native.available():
+        raise AssertionError(f"[native] the frame-I/O library did not build or load:\n"
+                             f"{native.build_error}")
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        for label, enc in (("native", lambda: native.encode_png(frame_u8, compress_level=1)),
+                           ("stdlib", lambda: encode_png_stdlib(frame_u8, 6))):
+            data = enc()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                enc()
+            times[label] = ((time.perf_counter() - t0) / 5 * 1e3, len(data))
+            path = os.path.join(tmp, f"{label}.png")
+            with open(path, "wb") as f:
+                f.write(data)
+            if not np.array_equal(read_png_rgb(path), frame_u8):
+                raise AssertionError(f"[native] the {label} PNG does not decode to its frame")
+        out = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        stdout = run_cli(["fluid_3d", "--width", "1920", "--height", "1080"], "cli-render-1080",
+                         out, 20, ("g2p_migrate_emit", "blur_depth"))
+        wall = time.perf_counter() - t0
+        pngs = sorted(os.path.join(out, f) for f in os.listdir(out) if f.endswith(".png"))
+        shapes = {read_png_rgb(f).shape for f in pngs}
+        filters = set().union(*(png_filters(f) for f in pngs))
+        if shapes != {(1080, 1920, 3)} or filters != {0, 2}:
+            raise AssertionError(f"[native] render's PNGs: shapes {shapes}, row filters "
+                                 f"{filters} (want the native encoder's 0 then 2)")
+    avg = re.search(r"avg ([\d.]+) ms/frame", stdout)
+    phase("native", f"library {native.lib_path().name} loaded; one 1920x1080 frame: native "
+          f"{times['native'][0]:.2f} ms ({times['native'][1]} B), stdlib level 6 "
+          f"{times['stdlib'][0]:.2f} ms ({times['stdlib'][1]} B), both decode to the frame; "
+          f"render fluid_3d 1920x1080 x 20: {avg.group(1) if avg else '?'} ms/frame after the "
+          f"first (the CLI's line, PNG writes included), {wall:.1f} s in all, 20 PNGs read "
+          f"back, rows filtered 0 then 2 (the native encoder) [{smi}]")
+
+
+def phase_ladder(smi: str, t_start: float) -> None:
+    """[ladder]: utils/ladder.py's rows 3a and 4a (250k on a true 64^3, 4M on
+    a true 128^3, through the air window), then 3 and 4 (the same without
+    the window) unless the run has passed 400 s: lost 0, finite positions."""
+    from mpm_tpu_torch.utils import ladder
+
+    dev = torch.device("cuda", 0)
+    for row in ("3a", "4a", "3", "4"):
+        if row in ("3", "4") and time.perf_counter() - t_start > 400:
+            phase("ladder", f"row {row} left out: the run has taken "
+                  f"{time.perf_counter() - t_start:.0f} s (python -m mpm_tpu_torch.utils.ladder "
+                  f"{row} runs it)")
+            continue
+        res = ladder.run_row(row, dev, log=lambda *_: None)
+        if res["lost"] != 0 or not res["finite"]:
+            raise AssertionError(f"[ladder] row {row}: {res}")
+        keys = ("ms_per_substep", "particle_steps_per_s", "lost", "deferred", "wy", "resizes",
+                "ceiling_hits", "ns_per_slot")
+        phase("ladder", f"row {row}: {res['particles']} particles, grid {tuple(res['grid'])}, "
+              f"K={res['K']}: " + " ".join(f"{k}={res[k]}" for k in keys if k in res)
+              + f"; windows {[round(t, 4) for t in res['window_s']]} s [{smi}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_power()
@@ -1914,6 +2098,7 @@ def main() -> None:
                              f"{int(state.ceiling)}, band certificate {uncovered}")
     if min(launches1080[k] for k in ("g2p_migrate_emit", "blur_depth")) <= 0:
         raise AssertionError(f"1080p render did not launch every kernel: {launches1080}")
+    frame1080_u8 = img1080.cpu().numpy()
     share1080 = fluid_share(img1080, frame_to_u8(bg1080[0]), rc1080.crop)
     if share1080 < 0.1:
         raise AssertionError(f"1080p render: fluid on only {share1080:.3f} of the crop")
@@ -2001,6 +2186,7 @@ def main() -> None:
     phase_config5_render(dev, smi, s5, cfg5, true_cfg5, fluid5)
     del s5
     phase_stress_tests()
+    errs_wide, launches_wide = phase_wide_k(smi, timing, bounds)
 
     # 8. CLI
     cmd = [sys.executable, "-m", "mpm_tpu_torch", "run", "fluid_3d", "--frames", "5",
@@ -2090,6 +2276,8 @@ def main() -> None:
                 os.path.join(tmp, "c"), 2, ("g2p_migrate_emit", "blur_depth"))
     phase_cli_runtime()
     phase_cli_modes(dev, smi)
+    phase_native(smi, frame1080_u8)
+    phase_ladder(smi, t_start)
 
     # launches: each kernel's count from the main path that runs it (the
     # pool for P and F, the 640x360 render loops of every mode for the
@@ -2143,6 +2331,14 @@ def main() -> None:
            "g2p_migrate_shard": ("mpm_tpu_torch/csrc/g2p_migrate.cu",
                                  "mpm_tpu/ops/pallas/fused.py:387",
                                  errs_shard["g2p_migrate_shard"])}
+    # the slot-count rows: [wide-k]'s main path on the dense scenes (counts
+    # set to 0 before, read after), then bit-equal and timed on its state
+    base = {"p2g_update": src["p2g_update"], "g2p_migrate": src["g2p_migrate"],
+            "sim2d": src["sim2d"], "migrate2d": src["migrate2d"]}
+    for row, err in errs_wide.items():
+        kern = row.rsplit("_k", 1)[0]
+        src[row] = (base[kern][0], base[kern][1], err)
+        launches[row] = launches_wide[row]
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [{"name": k, "route": "cuda", "source": s, "replaces": r,
                 "launches": launches[k], "max_abs_err": e,

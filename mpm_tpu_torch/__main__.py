@@ -270,6 +270,19 @@ def kernel_launches() -> dict:
             "g2p_planes": planes.g2p_launches, "migrate_planes": migrate_planes.launches}
 
 
+def reset_kernel_launches() -> None:
+    """Sets every count kernel_launches reads to 0."""
+    from .ops.cuda import g2p_migrate, migrate_planes, p2g_shard, p2g_update, planes, substep2d
+    from .render import blur_kernel, extract_kernel
+
+    p2g_update.launches = g2p_migrate.launches = g2p_migrate.emit_launches = 0
+    p2g_shard.p2g1_launches = p2g_shard.p2g2u_launches = g2p_migrate.shard_launches = 0
+    substep2d.sim2d_launches = substep2d.migrate2d_launches = 0
+    extract_kernel.launches = blur_kernel.launches = 0
+    planes.p2g1_launches = planes.p2g2_launches = planes.g2p_launches = 0
+    migrate_planes.launches = 0
+
+
 def _apply_fluid_overrides(args, fluid):
     """--fluid KEY=VALUE and --flip-gravity-at (mpm_tpu/__main__.py:106-126):
     (fluid0, fluid_fn(frame) -> FluidParams). Values stay float32 CPU

@@ -61,6 +61,8 @@
 //                   written out of place, the rest zeroed (index -1), any
 //                   excess counted in `lost`. It moves positions, mass and
 //                   each slot's index into the migration's input only.
+//                   WIDE (K > 64): the candidates' bits a chunk of 64
+//                   slots at a time.
 //   migrate_gather  one thread per output slot, after the last phase: vel,
 //                   C and ids moved once, through the composed index.
 #pragma once
@@ -150,10 +152,25 @@ __host__ __device__ constexpr int tile_buckets() {  // the tile's buckets and th
                 : (tile_dim<2>(0) + 2) * (tile_dim<2>(1) + 2);
 }
 // A cell's occupied slots, bit k for slot k: a 32-bit word M when K <= 32,
-// a 64-bit one when K <= MAX_K. The launchers pick M by K, so the kernels
-// at K <= 32 are those of one word.
-constexpr int MAX_K = 64;
+// a 64-bit one when K <= 64. Above 64 slots the WIDE variants walk a cell's
+// slots a chunk of 64 at a time, chunk after chunk, so a bucket's slots are
+// still taken in slot order. The launchers pick M and WIDE by K through
+// by_slots, so the kernels at K <= 32 are those of one word and at K <= 64
+// those of one 64-bit word.
+constexpr int CHUNK = 64;  // slots a WIDE chunk
 using Bits64 = unsigned long long;
+template <typename MT, bool W>
+struct SlotMasks {
+  using M = MT;
+  static constexpr bool WIDE = W;
+};
+// f(SlotMasks<M, WIDE>{}) for the masks of K slots.
+template <class F>
+auto by_slots(int K, F f) {
+  return K > CHUNK ? f(SlotMasks<Bits64, true>{})
+         : K > 32  ? f(SlotMasks<Bits64, false>{})
+                   : f(SlotMasks<unsigned, false>{});
+}
 __device__ __forceinline__ int slot_first(unsigned m) { return __ffs(m) - 1; }
 __device__ __forceinline__ int slot_first(Bits64 m) { return __ffsll((long long)m) - 1; }
 __device__ __forceinline__ int slot_count(unsigned m) { return __popc(m); }
@@ -206,8 +223,10 @@ struct SlotVals {
 // mass and APIC momentum on the nodes of grid_geom(p.g, s), one block a
 // tile, one thread a node; x below is a node's state coordinate (go planes
 // below its grid plane), so a halo node gathers the state planes within its
-// reach.
-template <int D, typename VC, typename GT, class Params, typename M = unsigned>
+// reach. WIDE (K > 64): the masks hold a chunk of CHUNK slots, and the
+// walk below runs once a chunk, in slot order.
+template <int D, typename VC, typename GT, class Params, typename M = unsigned,
+          bool WIDE = false>
 __global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
     p2g_mass_tile(const float* __restrict__ pos, const VC* __restrict__ vel,
                   const VC* __restrict__ Cm, const float* __restrict__ mass,
@@ -246,22 +265,31 @@ __global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
     }
   };
 
-  // the occupancy masks of this thread's buckets h = threadIdx.x + j * NN
+  // the occupancy masks of this thread's buckets h = threadIdx.x + j * NN,
+  // slots k0 on (bit k - k0): all K, or WIDE, the chunk [k0, k0 + CHUNK)
   M bits[NB];
-  bool any = false;
+  auto occupancy = [&](int k0) {
+    const int kend = WIDE ? min(g.K, k0 + CHUNK) : g.K;
+    bool any = false;
 #pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const int h = threadIdx.x + j * NN;
-    bits[j] = 0;
-    if (h >= HB) continue;
-    int hc[D], bx[D];
-    halo_coords(h, hc, bx);
-    if (!in_grid(g, bx)) continue;
-    const int b = flat(g, bx);
-    for (int k = 0; k < g.K; ++k)
-      if (mass[(size_t)k * g.C + b] > 0.f) bits[j] |= M(1) << k;
-    any = any || bits[j] != 0;
-  }
+    for (int j = 0; j < NB; ++j) {
+      const int h = threadIdx.x + j * NN;
+      bits[j] = 0;
+      if (h >= HB) continue;
+      int hc[D], bx[D];
+      halo_coords(h, hc, bx);
+      if (!in_grid(g, bx)) continue;
+      const int b = flat(g, bx);
+      for (int k = k0; k < kend; ++k)
+        if (mass[(size_t)k * g.C + b] > 0.f) bits[j] |= M(1) << (k - k0);
+      any = any || bits[j] != 0;
+    }
+    return any;
+  };
+  int held = 0;  // the chunk `bits` holds
+  bool any = occupancy(0);
+  if constexpr (WIDE)  // a later chunk only while the first ones hold no slot
+    for (int k0 = CHUNK; k0 < g.K && !any; k0 += CHUNK) any = occupancy(held = k0);
 
   // this thread's node
   int lx[D], x[D];
@@ -291,81 +319,86 @@ __global__ void __launch_bounds__(tile_nodes<D>(), MassTile<D>::MIN_BLOCKS)
   __syncthreads();
 
 #pragma unroll 1
-  for (int j = 0; j < NB; ++j) {
-    M occ = 0;  // bits[j], selected without indexing the array by j
+  for (int k0 = 0; k0 < (WIDE ? g.K : 1); k0 += CHUNK) {  // one pass unless WIDE
+    if constexpr (WIDE)
+      if (k0 != held) occupancy(held = k0);
+#pragma unroll 1
+    for (int j = 0; j < NB; ++j) {
+      M occ = 0;  // bits[j], selected without indexing the array by j
 #pragma unroll
-    for (int q = 0; q < NB; ++q)
-      if (q == j) occ = bits[q];
-    if (!occ) continue;
-    int hc[D], bx[D];
-    halo_coords(threadIdx.x + j * NN, hc, bx);
-    const int b = flat(g, bx);
-    // reach[a] bit r: the node bucket + r - 1 (tile coordinate hc + r - 2)
-    // on axis a is one the tile holds
-    unsigned reach[D];
-    float cb[D];  // the bucket's centre
-    for (int a = 0; a < D; ++a) {
-      reach[a] = 0;
-      for (int r = 0; r < 3; ++r) {
-        const int l = hc[a] + r - 2;
-        if (l >= 0 && l < lim[a]) reach[a] |= 1u << r;
-      }
-      cb[a] = global_coord(s, a, bx[a]) + 0.5f;
-    }
-    // the bucket's occupied slots in slot order, each loaded while the one
-    // before it is added
-    SlotVals<D, VC> nx;
-    nx.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
-    while (occ) {
-      const SlotVals<D, VC> sv = nx;
-      occ &= occ - 1;
-      if (occ) nx.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
-      const float m = sv.m;
-      float d[D], v[D], cm[D][D], aw[D][3], cz[D][3];
+      for (int q = 0; q < NB; ++q)
+        if (q == j) occ = bits[q];
+      if (!occ) continue;
+      int hc[D], bx[D];
+      halo_coords(threadIdx.x + j * NN, hc, bx);
+      const int b = flat(g, bx);
+      // reach[a] bit r: the node bucket + r - 1 (tile coordinate hc + r - 2)
+      // on axis a is one the tile holds
+      unsigned reach[D];
+      float cb[D];  // the bucket's centre
       for (int a = 0; a < D; ++a) {
-        d[a] = sv.p[a] - cb[a];
-        v[a] = to_float(sv.v[a]);
-      }
-      for (int e = 0; e < D * D; ++e) cm[e / D][e % D] = to_float(sv.c[e]);
-      for (int a = 0; a < D; ++a)
-        for (int r = 0; r < 3; ++r) aw[a][r] = axis_weight(r, d[a]);
-      // C[row][D-1] * dist on the last axis, dist = (r - 1) - d
-      for (int row = 0; row < D; ++row)
-        for (int r = 0; r < 3; ++r) cz[row][r] = cm[row][D - 1] * ((float)(r - 1) - d[D - 1]);
-      // the taps by their digits on axes 0 .. D-2 (lead l), then on the
-      // last axis (z): what a lead's taps share is computed once for it, in
-      // the operations' order: the weight product of the lead's axes and
-      // matvec_row's sum over their columns
-#pragma unroll
-      for (int l = 0; l < NTAPS<D> / 3; ++l) {
-        int r[D];
-        tap_digits(l * 3, r);
-        bool in = true;
-        for (int a = 0; a < D - 1; ++a) in = in && ((reach[a] >> r[a]) & 1u);
-        if (!in) continue;
-        float wl = aw[0][r[0]], cl[D];
-        for (int a = 1; a < D - 1; ++a) wl = wl * aw[a][r[a]];
-        for (int row = 0; row < D; ++row) {
-          cl[row] = cm[row][0] * ((float)(r[0] - 1) - d[0]);
-          for (int col = 1; col < D - 1; ++col)
-            cl[row] = cl[row] + cm[row][col] * ((float)(r[col] - 1) - d[col]);
+        reach[a] = 0;
+        for (int r = 0; r < 3; ++r) {
+          const int l = hc[a] + r - 2;
+          if (l >= 0 && l < lim[a]) reach[a] |= 1u << r;
         }
+        cb[a] = global_coord(s, a, bx[a]) + 0.5f;
+      }
+      // the bucket's occupied slots in slot order, each loaded while the one
+      // before it is added
+      SlotVals<D, VC> nx;
+      nx.load(pos, vel, Cm, mass, (size_t)(k0 + slot_first(occ)) * g.C + b, KC);
+      while (occ) {
+        const SlotVals<D, VC> sv = nx;
+        occ &= occ - 1;
+        if (occ) nx.load(pos, vel, Cm, mass, (size_t)(k0 + slot_first(occ)) * g.C + b, KC);
+        const float m = sv.m;
+        float d[D], v[D], cm[D][D], aw[D][3], cz[D][3];
+        for (int a = 0; a < D; ++a) {
+          d[a] = sv.p[a] - cb[a];
+          v[a] = to_float(sv.v[a]);
+        }
+        for (int e = 0; e < D * D; ++e) cm[e / D][e % D] = to_float(sv.c[e]);
+        for (int a = 0; a < D; ++a)
+          for (int r = 0; r < 3; ++r) aw[a][r] = axis_weight(r, d[a]);
+        // C[row][D-1] * dist on the last axis, dist = (r - 1) - d
+        for (int row = 0; row < D; ++row)
+          for (int r = 0; r < 3; ++r) cz[row][r] = cm[row][D - 1] * ((float)(r - 1) - d[D - 1]);
+        // the taps by their digits on axes 0 .. D-2 (lead l), then on the
+        // last axis (z): what a lead's taps share is computed once for it, in
+        // the operations' order: the weight product of the lead's axes and
+        // matvec_row's sum over their columns
 #pragma unroll
-        for (int z = 0; z < 3; ++z) {
-          if (!((reach[D - 1] >> z) & 1u)) continue;
-          r[D - 1] = z;
-          const float mass_c = (wl * aw[D - 1][z]) * m;  // tap_weight, times the mass
-          int n = 0, tn = 0;  // the node in the tile; its tap 2 - r
-          for (int a = 0; a < D; ++a) {
-            n = n * tile_dim<D>(a) + hc[a] + r[a] - 2;
-            tn = tn * 3 + 2 - r[a];
+        for (int l = 0; l < NTAPS<D> / 3; ++l) {
+          int r[D];
+          tap_digits(l * 3, r);
+          bool in = true;
+          for (int a = 0; a < D - 1; ++a) in = in && ((reach[a] >> r[a]) & 1u);
+          if (!in) continue;
+          float wl = aw[0][r[0]], cl[D];
+          for (int a = 1; a < D - 1; ++a) wl = wl * aw[a][r[a]];
+          for (int row = 0; row < D; ++row) {
+            cl[row] = cm[row][0] * ((float)(r[0] - 1) - d[0]);
+            for (int col = 1; col < D - 1; ++col)
+              cl[row] = cl[row] + cm[row][col] * ((float)(r[col] - 1) - d[col]);
           }
-          V4 u = part[tn * NN + n];
-          u.x = G::add(u.x, G::enc(mass_c, mult));
-          for (int a = 0; a < D; ++a)  // matvec_row, then v + C * dist
-            vec_at(u, a + 1) =
-                G::add(vec_at(u, a + 1), G::enc(mass_c * (v[a] + (cl[a] + cz[a][z])), mult));
-          part[tn * NN + n] = u;
+#pragma unroll
+          for (int z = 0; z < 3; ++z) {
+            if (!((reach[D - 1] >> z) & 1u)) continue;
+            r[D - 1] = z;
+            const float mass_c = (wl * aw[D - 1][z]) * m;  // tap_weight, times the mass
+            int n = 0, tn = 0;  // the node in the tile; its tap 2 - r
+            for (int a = 0; a < D; ++a) {
+              n = n * tile_dim<D>(a) + hc[a] + r[a] - 2;
+              tn = tn * 3 + 2 - r[a];
+            }
+            V4 u = part[tn * NN + n];
+            u.x = G::add(u.x, G::enc(mass_c, mult));
+            for (int a = 0; a < D; ++a)  // matvec_row, then v + C * dist
+              vec_at(u, a + 1) =
+                  G::add(vec_at(u, a + 1), G::enc(mass_c * (v[a] + (cl[a] + cz[a][z])), mult));
+            part[tn * NN + n] = u;
+          }
         }
       }
     }
@@ -478,8 +511,11 @@ __device__ __forceinline__ int rec_m(int e) { return D + 2 + e; }
 // Pass 2 added to acc0 (UPDATE: kernel P's pass-1 momentum gmom, then the
 // grid update into gvel; else from zero into out, the per-pass kernel B).
 // One thread per node of a tile of grid_geom(p.g, s); x below is the
-// node's state coordinate (go planes below its grid plane).
-template <int D, typename VC, typename GT, bool UPDATE, class Params, typename M = unsigned>
+// node's state coordinate (go planes below its grid plane). WIDE (K > 64):
+// the occupancy masks hold a chunk of CHUNK slots, restaged chunk after
+// chunk, and the tap partials take the chunks in slot order.
+template <int D, typename VC, typename GT, bool UPDATE, class Params, typename M = unsigned,
+          bool WIDE = false>
 __global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
     p2g_force_tile(const float* __restrict__ pos, const VC* __restrict__ Cm,
                    const float* __restrict__ mass, const float* __restrict__ a_p,
@@ -519,21 +555,6 @@ __global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
     }
   };
 
-  if (threadIdx.x == 0) *kmax = 0;
-  __syncthreads();
-  for (int h = threadIdx.x; h < HB; h += blockDim.x) {
-    int bx[D];
-    halo_cell(h, bx);
-    M bits = 0;
-    if (in_grid(g, bx)) {
-      const int b = flat(g, bx);
-      for (int k = 0; k < g.K; ++k)
-        if (mass[(size_t)k * g.C + b] > 0.f) bits |= M(1) << k;
-    }
-    occ[h] = bits;
-    if (bits) atomicMax(kmax, slot_end(bits));
-  }
-
   // this thread's node
   int lx[D], x[D];
   {
@@ -553,76 +574,97 @@ __global__ void __launch_bounds__(tile_nodes<D>(), ForceTile<D>::MIN_BLOCKS)
   for (int t = 0; t < NTAPS<D>; ++t)
 #pragma unroll
     for (int a = 0; a < D; ++a) part[t][a] = 0;
-  __syncthreads();
-  const int kend = *kmax;
 
-  for (int k0 = 0; k0 < kend; k0 += KS) {
-    if (k0) __syncthreads();  // the previous chunk is consumed
-    for (int e = threadIdx.x; e < KS * HB; e += blockDim.x) {
-      const int kk = e / HB, h = e % HB, k = k0 + kk;
-      if (k >= g.K || !((occ[h] >> k) & 1)) continue;
+  // slots kc on (bit k - kc of occ): all K, or WIDE, the chunk [kc, kc + CHUNK)
+#pragma unroll 1
+  for (int kc = 0; kc < (WIDE ? g.K : 1); kc += CHUNK) {  // one pass unless WIDE
+    if (kc) __syncthreads();  // the last chunk is consumed and *kmax read
+    if (threadIdx.x == 0) *kmax = 0;
+    __syncthreads();
+    const int kw = WIDE ? min(g.K - kc, CHUNK) : g.K;  // slots in this chunk
+    for (int h = threadIdx.x; h < HB; h += blockDim.x) {
       int bx[D];
       halo_cell(h, bx);
-      const size_t i = (size_t)k * g.C + flat(g, bx);
-      float r[NR], Cl[D * D];
-      for (int a = 0; a < D; ++a) r[rec_pos<D>(a)] = pos[a * KC + i];
-      r[rec_ap<D>()] = a_p[i];
-      r[rec_bm<D>()] = b_mu[i];
-      for (int a = 0; a < D * D; ++a) Cl[a] = load_vc(Cm, a * KC + i);
-      for (int u = 0; u < D; ++u)
-        for (int v = 0; v < D; ++v) {
-          float m = Cl[u * D + v];
-          if (p.legacy_strain) {
-            // S = C + C^T - I * C^T (MLSMPM2DFluid.cs:276-281): off-diagonal
-            // entries symmetrised, the diagonal C_ii left unscaled
-            const float sum = Cl[u * D + v] + Cl[v * D + u];
-            m = u == v ? sum - Cl[v * D + u] : sum;
-          }
-          r[rec_m<D>(u * D + v)] = m;
-        }
-      for (int q = rec_m<D>(D * D); q < NR; ++q) r[q] = 0.f;
-      for (int q = 0; q < NG; ++q)
-        rec[(kk * NG + q) * HB + h] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
-                                                  r[4 * q + 3]);
+      M bits = 0;
+      if (in_grid(g, bx)) {
+        const int b = flat(g, bx);
+        for (int k = 0; k < kw; ++k)
+          if (mass[(size_t)(kc + k) * g.C + b] > 0.f) bits |= M(1) << k;
+      }
+      occ[h] = bits;
+      if (bits) atomicMax(kmax, slot_end(bits));
     }
     __syncthreads();
-    if (!valid) continue;
-    const int kn = min(KS, kend - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      const int k = k0 + kk;
+    const int kend = *kmax;
+
+    for (int k0 = 0; k0 < kend; k0 += KS) {
+      if (k0) __syncthreads();  // the previous chunk is consumed
+      for (int e = threadIdx.x; e < KS * HB; e += blockDim.x) {
+        const int kk = e / HB, h = e % HB, k = k0 + kk;
+        if (k >= kw || !((occ[h] >> k) & 1)) continue;
+        int bx[D];
+        halo_cell(h, bx);
+        const size_t i = (size_t)(kc + k) * g.C + flat(g, bx);
+        float r[NR], Cl[D * D];
+        for (int a = 0; a < D; ++a) r[rec_pos<D>(a)] = pos[a * KC + i];
+        r[rec_ap<D>()] = a_p[i];
+        r[rec_bm<D>()] = b_mu[i];
+        for (int a = 0; a < D * D; ++a) Cl[a] = load_vc(Cm, a * KC + i);
+        for (int u = 0; u < D; ++u)
+          for (int v = 0; v < D; ++v) {
+            float m = Cl[u * D + v];
+            if (p.legacy_strain) {
+              // S = C + C^T - I * C^T (MLSMPM2DFluid.cs:276-281): off-diagonal
+              // entries symmetrised, the diagonal C_ii left unscaled
+              const float sum = Cl[u * D + v] + Cl[v * D + u];
+              m = u == v ? sum - Cl[v * D + u] : sum;
+            }
+            r[rec_m<D>(u * D + v)] = m;
+          }
+        for (int q = rec_m<D>(D * D); q < NR; ++q) r[q] = 0.f;
+        for (int q = 0; q < NG; ++q)
+          rec[(kk * NG + q) * HB + h] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                                                    r[4 * q + 3]);
+      }
+      __syncthreads();
+      if (!valid) continue;
+      const int kn = min(KS, kend - k0);
+      for (int kk = 0; kk < kn; ++kk) {
+        const int k = k0 + kk;
 #pragma unroll
-      for (int t = 0; t < NTAPS<D>; ++t) {
-        // bucket x + tt - 1, halo index lx + tt; its slots reach the node
-        // with tap r = 2 - tt
-        int tt[D];
-        tap_digits(t, tt);
-        int h = lx[0] + tt[0];
-        for (int a = 1; a < D; ++a) h = h * hn[a] + lx[a] + tt[a];
-        if (!((occ[h] >> k) & 1)) continue;
-        float r[NR];
-        for (int q = 0; q < NG; ++q) {
-          const float4 v = rec[(kk * NG + q) * HB + h];
-          r[4 * q] = v.x;
-          r[4 * q + 1] = v.y;
-          r[4 * q + 2] = v.z;
-          r[4 * q + 3] = v.w;
-        }
-        int rr[D];
-        float d[D], dist[D], M[D * D];
-        for (int a = 0; a < D; ++a) {
-          rr[a] = 2 - tt[a];
-          const float cb = (global_coord(s, a, x[a]) + 0.5f) + (float)(tt[a] - 1);
-          d[a] = r[rec_pos<D>(a)] - cb;
-        }
-        const float w = tap_weight(rr, d);
-        for (int a = 0; a < D; ++a) dist[a] = (float)(rr[a] - 1) - d[a];
-        for (int a = 0; a < D * D; ++a) M[a] = r[rec_m<D>(a)];
-        const float ap = r[rec_ap<D>()], bm = r[rec_bm<D>()];
-        for (int a = 0; a < D; ++a) {
-          const float sd = p.legacy_strain
-                               ? matvec_row<D>(M, a, dist)
-                               : matvec_row<D>(M, a, dist) + matvec_t_row<D>(M, a, dist);
-          part[t][a] = G::add(part[t][a], G::enc(w * (ap * dist[a] + bm * sd), mult));
+        for (int t = 0; t < NTAPS<D>; ++t) {
+          // bucket x + tt - 1, halo index lx + tt; its slots reach the node
+          // with tap r = 2 - tt
+          int tt[D];
+          tap_digits(t, tt);
+          int h = lx[0] + tt[0];
+          for (int a = 1; a < D; ++a) h = h * hn[a] + lx[a] + tt[a];
+          if (!((occ[h] >> k) & 1)) continue;
+          float r[NR];
+          for (int q = 0; q < NG; ++q) {
+            const float4 v = rec[(kk * NG + q) * HB + h];
+            r[4 * q] = v.x;
+            r[4 * q + 1] = v.y;
+            r[4 * q + 2] = v.z;
+            r[4 * q + 3] = v.w;
+          }
+          int rr[D];
+          float d[D], dist[D], M[D * D];
+          for (int a = 0; a < D; ++a) {
+            rr[a] = 2 - tt[a];
+            const float cb = (global_coord(s, a, x[a]) + 0.5f) + (float)(tt[a] - 1);
+            d[a] = r[rec_pos<D>(a)] - cb;
+          }
+          const float w = tap_weight(rr, d);
+          for (int a = 0; a < D; ++a) dist[a] = (float)(rr[a] - 1) - d[a];
+          for (int a = 0; a < D * D; ++a) M[a] = r[rec_m<D>(a)];
+          const float ap = r[rec_ap<D>()], bm = r[rec_bm<D>()];
+          for (int a = 0; a < D; ++a) {
+            const float sd = p.legacy_strain
+                                 ? matvec_row<D>(M, a, dist)
+                                 : matvec_row<D>(M, a, dist) + matvec_t_row<D>(M, a, dist);
+            part[t][a] = G::add(part[t][a], G::enc(w * (ap * dist[a] + bm * sd), mult));
+          }
         }
       }
     }
@@ -681,14 +723,15 @@ template <int D, typename VC, typename GT, bool UPDATE, class Params>
 cudaError_t launch_p2g_force(const Params& p, const float* pos, const VC* Cm, const float* mass,
                              const float* a_p, const float* b_mu, const GT* gmass,
                              const GT* gmom, GT* out, cudaStream_t stream, const Slab& s) {
-  if (p.g.K > MAX_K) return cudaErrorInvalidValue;  // one occupancy bit a slot
   const GridGeom<D> gg = grid_geom(p.g, s);
   unsigned tiles = 1;
   for (int a = 0; a < D; ++a) tiles *= (gg.n[a] + tile_dim<D>(a) - 1) / tile_dim<D>(a);
-  const bool wide = p.g.K > 32;
-  const size_t smem = wide ? force_tile_smem<D, Bits64>() : force_tile_smem<D>();
-  auto kern = wide ? p2g_force_tile<D, VC, GT, UPDATE, Params, Bits64>
-                   : p2g_force_tile<D, VC, GT, UPDATE, Params>;
+  const auto kern = by_slots(p.g.K, [](auto m) {
+    using S = decltype(m);
+    return &p2g_force_tile<D, VC, GT, UPDATE, Params, typename S::M, S::WIDE>;
+  });
+  const size_t smem = by_slots(
+      p.g.K, [](auto m) { return force_tile_smem<D, typename decltype(m)::M>(); });
   if (smem > 48 * 1024) {  // above 48 KB only when asked for
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -890,13 +933,15 @@ __global__ void migrate_reject(const float* __restrict__ pos, const float* __res
 // axis phase moves only what the next phase reads: the positions (the
 // axis's own from R), the mass, and each slot's index into the state the
 // migration started from (idx; null: the identity, the first phase). One
-// thread per destination cell first marks its candidates, bit k of sel[j]
+// thread per destination cell first counts its candidates, bit k of a mask
 // for slot k of source j in [stay, from-left, from-right], then fills its K
 // output slots in slot order, the n-th candidate into slot n, so that a
 // warp's lanes store row n of neighbouring cells together; empty slots get
 // zeros and idx -1, the excess counts in `lost`. The payload (vel, C, ids)
-// moves once, after the last phase (migrate_gather).
-template <int D, typename M = unsigned>
+// moves once, after the last phase (migrate_gather). WIDE (K > 64): a
+// source's masks hold a chunk of CHUNK slots, counted chunk after chunk
+// first, then walked in slot order, each source's chunks in turn.
+template <int D, typename M = unsigned, bool WIDE = false>
 __global__ void migrate_select(const float* __restrict__ pos, const float* __restrict__ R,
                                const float* __restrict__ mass, const int* __restrict__ idx,
                                float* __restrict__ pos_o, float* __restrict__ mass_o,
@@ -910,34 +955,53 @@ __global__ void migrate_select(const float* __restrict__ pos, const float* __res
   const int n_a = axis_extent(g, axis);
   const int xg = axis == 0 ? s.x0 : 0;  // local to global coordinate
 
-  // candidates: own slots staying (shift 0), the left neighbour's slots
-  // moving +1, the right neighbour's moving -1
-  M sel[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
+  // source j's candidates among slots k0 on (bit k - k0): all K, or WIDE,
+  // the chunk [k0, k0 + CHUNK); j: own slots staying (shift 0), the left
+  // neighbour's slots moving +1, the right neighbour's moving -1
+  auto candidates = [&](int j, int k0) {
     const int shift = j == 0 ? 0 : (j == 1 ? 1 : -1);
     const int src_co = co - shift;
-    sel[j] = 0;
-    if (src_co < 0 || src_co >= n_a) continue;
+    M m = 0;
+    if (src_co < 0 || src_co >= n_a) return m;
     const int src = c - shift * st;
-    for (int k = 0; k < g.K; ++k) {
+    const int kend = WIDE ? min(g.K, k0 + CHUNK) : g.K;
+    for (int k = k0; k < kend; ++k) {
       const size_t i = (size_t)k * g.C + src;
-      if (mass[i] > 0.f && axis_delta(R[i], src_co + xg) == (float)shift) sel[j] |= M(1) << k;
+      if (mass[i] > 0.f && axis_delta(R[i], src_co + xg) == (float)shift)
+        m |= M(1) << (k - k0);
     }
+    return m;
+  };
+  M sel[3];  // each source's first chunk
+  int total = 0;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    sel[j] = candidates(j, 0);
+    total += slot_count(sel[j]);
   }
-  const int total = slot_count(sel[0]) + slot_count(sel[1]) + slot_count(sel[2]);
-  int j = 0;
+  if constexpr (WIDE)
+    for (int j = 0; j < 3; ++j)
+      for (int k0 = CHUNK; k0 < g.K; k0 += CHUNK) total += slot_count(candidates(j, k0));
+  int j = 0, k0 = 0;
   M m = sel[0];
   for (int n = 0; n < g.K; ++n) {
     const size_t o = (size_t)n * g.C + c;
-    while (m == 0 && j < 2) m = ++j == 1 ? sel[1] : sel[2];
+    while (m == 0 && j < 3) {  // WIDE: this source's next chunk; else the next source
+      if constexpr (WIDE)
+        if ((k0 += CHUNK) < g.K) {
+          m = candidates(j, k0);
+          continue;
+        }
+      k0 = 0;
+      if (++j < 3) m = j == 1 ? sel[1] : sel[2];
+    }
     if (m == 0) {
       for (int a = 0; a < D; ++a) pos_o[a * KC + o] = 0.f;
       mass_o[o] = 0.f;
       idx_o[o] = -1;
       continue;
     }
-    const int k = slot_first(m);
+    const int k = k0 + slot_first(m);
     m &= m - 1;
     const int src = c - (j == 0 ? 0 : (j == 1 ? st : -st));
     const size_t i = (size_t)k * g.C + src;
@@ -981,13 +1045,14 @@ template <int D, typename VC, typename GT, class Params>
 cudaError_t launch_p2g_pass1(const Params& p, const float* pos, const VC* vel, const VC* Cm,
                              const float* mass, GT* gmass, GT* gmom, cudaStream_t stream,
                              const Slab& s = whole_grid()) {
-  if (p.g.K > MAX_K) return cudaErrorInvalidValue;  // one occupancy bit a slot
   const GridGeom<D> gg = grid_geom(p.g, s);
   unsigned tiles = 1;
   for (int a = 0; a < D; ++a) tiles *= (gg.n[a] + tile_dim<D>(a) - 1) / tile_dim<D>(a);
   constexpr size_t smem = mass_tile_smem<D>();
-  auto kern = p.g.K > 32 ? p2g_mass_tile<D, VC, GT, Params, Bits64>
-                         : p2g_mass_tile<D, VC, GT, Params>;
+  const auto kern = by_slots(p.g.K, [](auto m) {
+    using S = decltype(m);
+    return &p2g_mass_tile<D, VC, GT, Params, typename S::M, S::WIDE>;
+  });
   if constexpr (smem > 48 * 1024) {  // above 48 KB only when asked for
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1052,15 +1117,17 @@ struct StateBuf {
 // writes the last phase's buffer, which holds the result (out0 for D = 3,
 // out1 for D = 2). src.vel, src.C and src.ids must not be out0's or out1's;
 // src.pos may be out1's (the first phase has read it when the second
-// writes). R is a [K, C] scratch row. K <= MAX_K (a bit a slot).
+// writes). R is a [K, C] scratch row.
 template <int D, typename T>
 cudaError_t launch_migrate(const GridGeom<D>& g, StateBuf<T> src, StateBuf<T> out0,
                            StateBuf<T> out1, float* R, int* lost, int* deferred,
                            int* ceiling, int ceil_band_y, cudaStream_t stream,
                            const Slab& s = whole_grid()) {
-  if (g.K > MAX_K) return cudaErrorInvalidValue;
   const StateBuf<T> first = src;
-  auto select = g.K > 32 ? migrate_select<D, Bits64> : migrate_select<D>;
+  const auto select = by_slots(g.K, [](auto m) {
+    using S = decltype(m);
+    return &migrate_select<D, typename S::M, S::WIDE>;
+  });
   StateBuf<T> dst = out0;
   const int* idx = nullptr;
   for (int ph = 0; ph < D; ++ph) {

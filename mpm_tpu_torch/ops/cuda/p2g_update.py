@@ -56,22 +56,15 @@ def check_supported(config: SimConfig) -> None:
     check_grid(config)
 
 
-MAX_K = 64  # csrc/bucket_kernels.cuh MAX_K: one occupancy bit a slot, in 64 bits
-
-
 def check_grid(config: SimConfig) -> None:
     """Raise for configs no bucket kernel covers, 3D or 2D."""
     if config.bc not in _BC:
         raise ValueError(f"unknown bc flavor: {config.bc}")
-    if config.bin_capacity > MAX_K:
-        # a bit a slot: the migration's candidates and both passes' staging
-        raise NotImplementedError(
-            f"the bucket kernels take at most {MAX_K} slots a cell (K = "
-            f"{config.bin_capacity}); mode='bucketed' runs such a config")
     if config.clamp_lo < 1.0 or config.clamp_hi_offset <= 1.0:
         # the kernels bound neighbour reads by grid coordinates; the plain
         # version reads flat offsets that wrap rows. They agree only while
-        # the clamps keep each axis's edge planes empty.
+        # the clamps keep each axis's edge planes empty, the invariant the
+        # JAX package's engines and kernels assume (mpm_tpu/ops/bucketed.py:16-19).
         raise NotImplementedError(
             "clamp_lo < 1 or clamp_hi_offset <= 1 lets particles into the "
             "grid's edge planes, which the bucket kernels assume empty; "

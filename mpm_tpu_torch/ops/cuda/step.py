@@ -39,9 +39,9 @@ def route(config: SimConfig, per_pass: bool | None = None) -> str:
     "plain" is where the JAX package runs its XLA engine (fused.py:1151-1190,
     bucket_kernels.py:271-280, 433-440): fixed-point 2D, and on the
     per-pass path every config but 3D float32 storage with a float grid.
-    A config the kernels would take in JAX but the port's do not (K > 64
-    slots a cell, clamps that let particles into the edge planes) raises
-    NotImplementedError (p2g_update.check_grid): mode="bucketed" runs it."""
+    The kernels take any K. Clamps that let particles into the edge
+    planes, which the JAX package assumes away, raise NotImplementedError
+    (p2g_update.check_grid): mode="bucketed" runs such a config."""
     if per_pass is None:
         per_pass = per_pass_env()
     if per_pass:

@@ -1,5 +1,6 @@
-"""PNG export with the standard library only (zlib + struct); port of
-``mpm_tpu.render.image`` without its native encoder."""
+"""PNG export (port of ``mpm_tpu.render.image``): the native encoder of
+mpm_tpu_torch/native where it builds, else the standard library (zlib +
+struct)."""
 
 from __future__ import annotations
 
@@ -17,12 +18,28 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """img: [H, W, 3] uint8, or float (tonemapped by to_uint8), or [H, W]."""
+    """img: [H, W, 3] uint8, or float (tonemapped), or [H, W]. The native
+    library tonemaps a float image and encodes at zlib level 1 (its "up"
+    filter path), as the JAX package's write_png does; where it cannot be
+    built, `to_uint8` and the stdlib encoder (filter 0, level 6) run."""
+    from .. import native
+
     img = np.asarray(img)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
     if img.dtype != np.uint8:
-        img = to_uint8(img)
+        tm = native.tonemap_u8(np.clip(np.asarray(img, np.float32), 0.0, 1.0))
+        img = tm if tm is not None else to_uint8(img)
+    data = native.encode_png(img, compress_level=1)
+    if data is None:
+        data = encode_png_stdlib(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png_stdlib(img: np.ndarray, level: int = 6) -> bytes:
+    """RGB8 [H, W, 3] -> PNG bytes with the standard library: filter 0 on
+    every row, zlib at `level`."""
     h, w = img.shape[:2]
 
     def chunk(tag: bytes, data: bytes) -> bytes:
@@ -30,12 +47,10 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-    out = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw, 6))
-           + chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(out)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, level))
+            + chunk(b"IEND", b""))
 
 
 def read_png_rgb(path: str) -> np.ndarray:

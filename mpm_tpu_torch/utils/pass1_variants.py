@@ -39,51 +39,51 @@ from .timing import cuda_time_ms
 BUILD = build.BUILD_DIR / "variants"
 
 _TILE = "return D == 3 ? (a == 0 ? 2 : a == 1 ? 8 : 16) : (a == 0 ? 8 : 32);"
-_PREFETCH = """    SlotVals<D, VC> nx;
-    nx.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
-    while (occ) {
-      const SlotVals<D, VC> sv = nx;
-      occ &= occ - 1;
-      if (occ) nx.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
+_PREFETCH = """      SlotVals<D, VC> nx;
+      nx.load(pos, vel, Cm, mass, (size_t)(k0 + slot_first(occ)) * g.C + b, KC);
+      while (occ) {
+        const SlotVals<D, VC> sv = nx;
+        occ &= occ - 1;
+        if (occ) nx.load(pos, vel, Cm, mass, (size_t)(k0 + slot_first(occ)) * g.C + b, KC);
 """
-_NO_PREFETCH = """    for (; occ; occ &= occ - 1) {
-      SlotVals<D, VC> sv;
-      sv.load(pos, vel, Cm, mass, (size_t)slot_first(occ) * g.C + b, KC);
+_NO_PREFETCH = """      for (; occ; occ &= occ - 1) {
+        SlotVals<D, VC> sv;
+        sv.load(pos, vel, Cm, mass, (size_t)(k0 + slot_first(occ)) * g.C + b, KC);
 """
-_RMW = """        for (int z = 0; z < 3; ++z) {
-          if (!((reach[D - 1] >> z) & 1u)) continue;
-          r[D - 1] = z;
-          const float mass_c = (wl * aw[D - 1][z]) * m;  // tap_weight, times the mass
-          int n = 0, tn = 0;  // the node in the tile; its tap 2 - r
-          for (int a = 0; a < D; ++a) {
-            n = n * tile_dim<D>(a) + hc[a] + r[a] - 2;
-            tn = tn * 3 + 2 - r[a];
-          }
-          V4 u = part[tn * NN + n];
-          u.x = G::add(u.x, G::enc(mass_c, mult));
-          for (int a = 0; a < D; ++a)  // matvec_row, then v + C * dist
-            vec_at(u, a + 1) =
-                G::add(vec_at(u, a + 1), G::enc(mass_c * (v[a] + (cl[a] + cz[a][z])), mult));
-          part[tn * NN + n] = u;
-        }"""
-_GUARDED_RMW = """        for (int z = 0; z < 3; ++z) {
-          r[D - 1] = z;
-          GT add[D + 1];
-          const float mass_c = (wl * aw[D - 1][z]) * m;
-          add[0] = G::enc(mass_c, mult);
-          for (int a = 0; a < D; ++a)
-            add[a + 1] = G::enc(mass_c * (v[a] + (cl[a] + cz[a][z])), mult);
-          int n = 0, tn = 0;
-          for (int a = 0; a < D; ++a) {
-            n = n * tile_dim<D>(a) + hc[a] + r[a] - 2;
-            tn = tn * 3 + 2 - r[a];
-          }
-          if ((reach[D - 1] >> z) & 1u) {
+_RMW = """          for (int z = 0; z < 3; ++z) {
+            if (!((reach[D - 1] >> z) & 1u)) continue;
+            r[D - 1] = z;
+            const float mass_c = (wl * aw[D - 1][z]) * m;  // tap_weight, times the mass
+            int n = 0, tn = 0;  // the node in the tile; its tap 2 - r
+            for (int a = 0; a < D; ++a) {
+              n = n * tile_dim<D>(a) + hc[a] + r[a] - 2;
+              tn = tn * 3 + 2 - r[a];
+            }
             V4 u = part[tn * NN + n];
-            for (int e = 0; e <= D; ++e) vec_at(u, e) = G::add(vec_at(u, e), add[e]);
+            u.x = G::add(u.x, G::enc(mass_c, mult));
+            for (int a = 0; a < D; ++a)  // matvec_row, then v + C * dist
+              vec_at(u, a + 1) =
+                  G::add(vec_at(u, a + 1), G::enc(mass_c * (v[a] + (cl[a] + cz[a][z])), mult));
             part[tn * NN + n] = u;
-          }
-        }"""
+          }"""
+_GUARDED_RMW = """          for (int z = 0; z < 3; ++z) {
+            r[D - 1] = z;
+            GT add[D + 1];
+            const float mass_c = (wl * aw[D - 1][z]) * m;
+            add[0] = G::enc(mass_c, mult);
+            for (int a = 0; a < D; ++a)
+              add[a + 1] = G::enc(mass_c * (v[a] + (cl[a] + cz[a][z])), mult);
+            int n = 0, tn = 0;
+            for (int a = 0; a < D; ++a) {
+              n = n * tile_dim<D>(a) + hc[a] + r[a] - 2;
+              tn = tn * 3 + 2 - r[a];
+            }
+            if ((reach[D - 1] >> z) & 1u) {
+              V4 u = part[tn * NN + n];
+              for (int e = 0; e <= D; ++e) vec_at(u, e) = G::add(vec_at(u, e), add[e]);
+              part[tn * NN + n] = u;
+            }
+          }"""
 
 # name: (text in bucket_kernels.cuh, its replacement)
 VARIANTS = {

@@ -2,12 +2,15 @@
 
 PyTorch returns before a CUDA device finishes, so a host clock measures the
 enqueue unless the work is fenced. `fence` synchronises the device of a
-state; `cuda_time_ms` times a callable with CUDA events.
+result; `time_fn` and `PhaseTimer` time fenced calls on the host's clock
+(the reference's per-phase spans); `cuda_time_ms` times a callable with
+CUDA events.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Callable
 
@@ -15,16 +18,53 @@ import numpy as np
 import torch
 
 
+def _first_tensor(x):
+    """The first tensor of a result: a tensor, a tuple or list (a Grid), or
+    a dataclass (a state); None if it holds none."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, (tuple, list)):
+        items = x
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        items = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    else:
+        return None
+    for item in items:
+        t = _first_tensor(item)
+        if t is not None:
+            return t
+    return None
+
+
 def fence(state) -> None:
-    """Wait until the device of `state` (a tensor, an object with a `pos`
-    tensor, or a sharded state's `slabs`) has finished all queued work."""
+    """Wait until the device of `state` (a tensor, a state, a grid or a
+    tuple of them, or a sharded state's `slabs`) has finished all queued
+    work; a result on the CPU, or without a tensor, needs no wait."""
     if hasattr(state, "slabs"):
         for s in state.slabs:
             fence(s)
         return
-    t = state if isinstance(state, torch.Tensor) else state.pos
-    if t.device.type == "cuda":
+    t = _first_tensor(state)
+    if t is not None and t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
+
+
+def time_fn(fn: Callable, *args, iters: int = 100, warmup: int = 3):
+    """Time `fn(*args) -> result`, each call taking the previous result as
+    its first argument (the others as given), on the host's clock between
+    fences. Returns (seconds_per_iter, last_result)."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+        args = (out, *args[1:])
+    fence(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+        args = (out, *args[1:])
+    fence(out)
+    dt = time.perf_counter() - t0
+    return dt / iters, out
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int, warmup: int = 2) -> float:
@@ -102,3 +142,28 @@ class FrameStats:
             out["dev_ms"] = float(np.mean(self.dev_times) * 1e3)
             out["host_ms"] = float(np.mean(self.host_times) * 1e3)
         return out
+
+
+class PhaseTimer:
+    """Named phase spans, the MLSMPM3DFluidMultithread.cs:185-219 analogue:
+    each `measure` calls `fn(*args)`, fences its result and adds the host
+    time to the phase's total."""
+
+    def __init__(self):
+        self.totals: dict[str, float] = collections.defaultdict(float)
+        self.counts: dict[str, int] = collections.defaultdict(int)
+
+    def measure(self, name: str, fn: Callable, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        fence(out)
+        self.totals[name] += time.perf_counter() - t0
+        self.counts[name] += 1
+        return out
+
+    def report(self) -> str:
+        lines = []
+        for name, tot in self.totals.items():
+            n = max(self.counts[name], 1)
+            lines.append(f"{name}: {tot / n * 1e3:.3f} ms/call x{n}")
+        return "\n".join(lines)

@@ -3,7 +3,8 @@ card, at the small scene of tests/test_fused.py, P and F also in
 fixed-point mode, the per-pass kernels A, B, D and E there too, the two
 sharded stages of P and F's shard mode (and the sharded step against the
 unsharded one), and the 2D kernels sim2d and migrate2d at dam_break_2d's
-size (f32 and bf16 vel/C); mode="cuda"'s routing to the plain engine, F and
+size (f32 and bf16 vel/C); mode="cuda"'s routing to the plain engine and,
+on dense scenes, to the kernels above 64 slots a cell; F and
 sim2d with 12 spheres, and the oracle, the binned engine, the sort-based
 slabs and legacy_quad on the card. Every test needs the card and skips
 without one. They import no JAX, so on a machine without JAX run them with
@@ -36,6 +37,7 @@ from mpm_tpu_torch.ops.interact import Interaction
 from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.ops.window import window_config
 from mpm_tpu_torch.parallel import domain
+from mpm_tpu_torch.utils import wide_k
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -468,11 +470,71 @@ def test_route_k_above_32_runs_the_kernels(dev, case):
     _assert_bit_equal(got, want)
 
 
+# the dense scenes of utils/wide_k.py (more than 64 particles in the
+# fullest cell; K = 200: 125 to 216 a fluid cell): (dim, K, grid)
+DENSE = {"k72_3d": (3, 72, 16), "k128_3d": (3, 128, 16), "k200_3d": (3, 200, 16),
+         "k72_2d": (2, 72, 32)}
+
+
+def _dense(dev, case):
+    dim, k, grid = DENSE[case]
+    config, fluid, state = wide_k.dense_scene(dim, k, dev, grid=grid, warm=0)
+    assert int((state.mass > 0).sum(0).max()) > 64
+    return config, fluid, state
+
+
+@pytest.mark.parametrize("case", list(DENSE))
+def test_route_k_above_64_runs_the_chunked_kernels(dev, case):
+    """K > 64: the kernels walk a cell's slots a chunk of 64 at a time;
+    mode="cuda" launches them (P and F, or sim2d and migrate2d) and equals
+    mode="bucketed" bit for bit over 3 substeps."""
+    config, fluid, state = _dense(dev, case)
+    names = ("sim2d", "migrate2d") if config.dim == 2 else ("p2g_update", "g2p_migrate")
+    n0 = dict(kernel_counts())
+    got = make_step(config, mode="cuda", substeps=3)(state, fluid)
+    torch.cuda.synchronize()
+    n1 = kernel_counts()
+    want = make_step(config, mode="bucketed", substeps=3)(state, fluid)
+    assert all(n1[k] == n0[k] + 3 for k in names), (n0, n1)
+    _assert_bit_equal(got, want)
+
+
+def test_per_pass_kernels_at_k72(dev, monkeypatch):
+    """A, B, D and E on the dense K = 72 scene bit for bit their plain
+    versions (E on the state after the plain tail, which moves and defers),
+    and MPM_PALLAS_OLD=1's substep through them against the plain per-pass
+    substep."""
+    config, fluid, state = _dense(dev, "k72_3d")
+    state = _warm(state, config, fluid, 1)
+    g1 = planes.p2g1_planes(state, config)
+    w1 = planes.p2g1_plain(state, config)
+    assert torch.equal(g1.mass, w1.mass) and torch.equal(g1.mom, w1.mom)
+    g2 = planes.p2g2_planes(state, w1.mass, config, fluid)
+    assert torch.equal(g2, planes.p2g2_plain(state, w1.mass, config, fluid))
+    grid = kp.p2g_update_plain(state, config, fluid)
+    vel, C = planes.g2p_planes(state, grid, config)
+    wvel, wC = planes.g2p_plain(state, grid, config)
+    assert torch.equal(vel, wvel) and torch.equal(C, wC)
+    pre = bucketed.g2p_bucketed(state, grid, config, fluid)
+    got = ke.migrate_planes(pre, config)
+    want = ke.migrate_planes_plain(pre, config)
+    for f in ("pos", "vel", "C", "mass", "ids", "lost", "deferred"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    monkeypatch.setenv("MPM_PALLAS_OLD", "1")
+    n_e = ke.launches
+    got = make_step(config, mode="cuda", substeps=3)(state, fluid)
+    want = state
+    for _ in range(3):
+        want = planes.substep_plain(want, config, fluid)
+    assert ke.launches == n_e + 3
+    _assert_states_close(got, want, False)
+
+
 def test_route_beyond_the_kernels_raises(dev):
-    """K = 72 and clamps into the edge planes raise under mode="cuda"; a
-    windowed config outside the envelope (fixed-point 2D with a domain)
-    raises ValueError, as in the JAX package."""
-    for kw in (dict(bin_capacity=72), dict(clamp_lo=0.5)):
+    """Clamps into the edge planes raise under mode="cuda"; a windowed
+    config outside the envelope (fixed-point 2D with a domain) raises
+    ValueError, as in the JAX package."""
+    for kw in (dict(clamp_lo=0.5), dict(clamp_hi_offset=1.0)):
         config, fluid, state = _scene(dev, **kw)
         with pytest.raises(NotImplementedError, match="mode='bucketed'"):
             make_step(config, mode="cuda", substeps=1)(state, fluid)
@@ -696,7 +758,16 @@ def test_shard_kernels_match_plain(dev, storage, fixed):
     of 4 padded slabs, fed the plain versions' exchanged grids: bit for
     bit their plain versions."""
     config, fluid, state = _scene(dev, storage, fixed_point=fixed)
-    state = _warm(state, config, fluid)
+    _check_shard_kernels(dev, config, fluid, _warm(state, config, fluid))
+
+
+def test_shard_kernels_match_plain_at_k72(dev):
+    """The same on the dense K = 72 scene (the kernels' 64-slot chunks)."""
+    config, fluid, state = _dense(dev, "k72_3d")
+    _check_shard_kernels(dev, config, fluid, _warm(state, config, fluid, 1))
+
+
+def _check_shard_kernels(dev, config, fluid, state):
     loc, pc = 4, 256
     padded = domain._exchange_state_halo(
         domain.shard_bucket_state(state, config, domain.SlabMesh.on(dev, 4)).slabs, pc)
@@ -776,47 +847,75 @@ def _stress_grid(config, fluid, dev, seed):
     return Grid(mom=gv.to(dev).contiguous(), mass=None)
 
 
-# case: (lattice spacing, config fields); spacing 0.5 fills every cell at K=8
+# case: (lattice spacing, config fields); spacing 0.5 fills every cell at K=8;
+# "dense": utils/wide_k's dense 16^3 scene at K above 64 (64 to 125
+# particles a fluid cell), each cell's slots in two or more 64-slot chunks
 MIGRATION_CASES = {
     "f32": (0.5, dict(bin_capacity=8)),
     "bf16_k4": (0.5, dict(bin_capacity=4, storage_dtype="bfloat16")),
     "fixed": (0.5, dict(bin_capacity=8, fixed_point=True)),
     "ceiling": (0.8, dict(bin_capacity=8)),
+    "dense_k72": ("dense", dict(bin_capacity=72)),
+    "dense_k128": ("dense", dict(bin_capacity=128)),
 }
+
+
+def _moved_from_high_slots(before, after, config) -> int:
+    """Particles in slot 64 or higher of `before` that `after` holds in
+    another z-column: each left its cell in the migration's first phase
+    (z), from a slot of its source's second chunk or later."""
+    nz = config.grid_res[-1]
+    ids0, ids1 = before.ids.cpu(), after.ids.cpu()
+    n = int(max(ids0.max(), ids1.max())) + 1
+    cell = torch.arange(config.num_cells).expand_as(ids0)
+    where0 = torch.full((n,), -1, dtype=torch.long)
+    where1 = torch.full((n,), -1, dtype=torch.long)
+    high = (ids0 >= 0) & (torch.arange(ids0.shape[0])[:, None] >= 64)
+    where0[ids0[high].long()] = cell[high]
+    where1[ids1[ids1 >= 0].long()] = cell[ids1 >= 0]
+    seen = (where0 >= 0) & (where1 >= 0)
+    return int((seen & (where0 % nz != where1 % nz)).sum())
 
 
 @pytest.mark.parametrize("case", list(MIGRATION_CASES))
 def test_kernel_f_migration_stress_matches_plain(dev, case):
     """Kernel F under a random grid velocity (deferred moves, CFL clamps;
-    at K=4 the packing overflows, so `lost` starts above 0 and the kernel
-    carries it; the window's ceiling band rejects upward moves): every
-    field and counter bit for bit the plain version's. The conservative
-    rejection keeps any bucket from overflowing, so the kernel adds 0 to
-    `lost`, as the plain version does."""
+    at K=4, and on the dense scene at K=72, the packing overflows, so
+    `lost` starts above 0 and the kernel carries it; the window's ceiling
+    band rejects upward moves; on the dense scenes particles of slots 64
+    and up move into the neighbours' candidate lists): every field and
+    counter bit for bit the plain version's. The conservative rejection
+    keeps any bucket from overflowing, so the kernel adds 0 to `lost`, as
+    the plain version does."""
     spacing, kw = MIGRATION_CASES[case]
-    sc = fluid_3d(grid_res=16, box=8.0, spacing=spacing, device=dev)
-    config = sc.config.replace(**kw)
-    st = sc.state
-    if case == "ceiling":  # the window's arrays y < 16 of 32; the fluid's top in its band
-        config = window_config(config.replace(grid_res=(16, 32, 16)), 16)
-        st = dataclasses.replace(st, pos=st.pos + torch.tensor([[0.0], [2.0], [0.0]], device=dev))
-    state = _warm(bucketed.from_simstate(st, config), config, sc.fluid)
-    grid = _stress_grid(config, sc.fluid, dev, seed=5)
+    if spacing == "dense":
+        config, fluid, state = wide_k.dense_scene(3, kw["bin_capacity"], dev, grid=16)
+    else:
+        sc = fluid_3d(grid_res=16, box=8.0, spacing=spacing, device=dev)
+        config, fluid, st = sc.config.replace(**kw), sc.fluid, sc.state
+        if case == "ceiling":  # the window's arrays y < 16 of 32; the fluid's top in its band
+            config = window_config(config.replace(grid_res=(16, 32, 16)), 16)
+            st = dataclasses.replace(
+                st, pos=st.pos + torch.tensor([[0.0], [2.0], [0.0]], device=dev))
+        state = _warm(bucketed.from_simstate(st, config), config, fluid)
+    grid = _stress_grid(config, fluid, dev, seed=5)
     if case == "ceiling":  # everything moves up fast
         up = torch.zeros_like(grid.mom)
-        up[1] = up[1] + 1.5 / float(sc.fluid.dt)
+        up[1] = up[1] + 1.5 / float(fluid.dt)
         grid = Grid(mom=up, mass=None)
     n0 = kf.launches
-    got = kf.g2p_migrate(state, grid, config, sc.fluid)
+    got = kf.g2p_migrate(state, grid, config, fluid)
     torch.cuda.synchronize()
     assert kf.launches == n0 + 1
-    want = kf.g2p_migrate_plain(state, grid, config, sc.fluid)
+    want = kf.g2p_migrate_plain(state, grid, config, fluid)
     _assert_bit_equal(got, want)
     assert int(want.deferred) > 0
-    if case == "bf16_k4":
+    if case in ("bf16_k4", "dense_k72"):
         assert int(want.lost) > 0
     if case == "ceiling":
         assert int(want.ceiling) > 0
+    if spacing == "dense":
+        assert _moved_from_high_slots(state, want, config) > 0
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])

@@ -5,13 +5,13 @@ bucket_kernels.pallas_supported; MPM_PALLAS_OLD) over a grid of configs,
 and a fixed-point 2D step through mode="cuda" on the CPU against the JAX
 XLA engine.
 
-Bars: the route equal to JAX's for every config up to K = 64 slots a cell.
-Beyond that the port's kernels (one occupancy bit a slot, in 64 bits) do
-not reach: where JAX runs its kernels there, mode="cuda" raises
-NotImplementedError, and where JAX runs its XLA engine, the port runs the
-plain engine. A windowed config outside the envelope raises ValueError in
-both. The fixed-point 2D step bit for bit against the XLA engine run
-without FMA (its reciprocal decode modelled).
+Bars: the route equal to JAX's for every config of the grid, at any K
+(the port's kernels walk a cell's slots 64 at a time above 64). A windowed
+config outside the envelope raises ValueError in both. Clamps that let
+particles into the edge planes, which the JAX package assumes away
+(mpm_tpu/ops/bucketed.py:16-19), raise NotImplementedError under
+mode="cuda". The fixed-point 2D step bit for bit against the XLA engine
+run without FMA (its reciprocal decode modelled).
 """
 
 import itertools
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from mpm_tpu.core.params import SimConfig as JConfig
+from mpm_tpu.ops.window import window_config as jwindow_config
 from mpm_tpu.ops.pallas import bucket_kernels as jbk
 from mpm_tpu.ops.pallas import fused as jfused
 from mpm_tpu.ops.pallas import kernels2d as jk2d
@@ -67,7 +68,7 @@ def test_route_matches_jax(dim, k, storage, old):
     kw = dict(grid_res=(16,) * dim, bin_capacity=k, **STORAGE[storage])
     want = jax_route(JConfig(**kw), old)
     got = port_route(SimConfig(**kw), old)
-    assert got == (want if k <= 64 or want == "plain" else "raise")
+    assert got == want
 
 
 def test_route_reads_the_env(monkeypatch):
@@ -81,8 +82,8 @@ def test_route_reads_the_env(monkeypatch):
 def test_windowed_outside_the_envelope_raises():
     """fused.py:1171-1187: a windowed config the kernels do not take
     raises rather than run without the ceiling band (a fixed-point 2D
-    config with a domain, in JAX and in the port); a windowed config beyond
-    the port's 64 slots raises NotImplementedError."""
+    config with a domain, in JAX and in the port); a windowed config at
+    K = 72 routes to the kernels, as in JAX."""
     from mpm_tpu_torch.ops.window import window_config
 
     kw = dict(grid_res=(16, 16), domain_res=(16, 32), fixed_point=True, bin_capacity=8)
@@ -95,19 +96,33 @@ def test_windowed_outside_the_envelope_raises():
         make_step(cfg2, mode="cuda", substeps=1)(b2, sc2.fluid)
 
     sc = fluid_3d(grid_res=16, box=8.0, spacing=0.8, device="cpu")
-    cfg = window_config(sc.config.replace(grid_res=(16, 32, 16), bin_capacity=72), 16)
-    with pytest.raises(NotImplementedError, match="64 slots"):
-        make_step(cfg, mode="cuda", substeps=1)(tb.from_simstate(sc.state, cfg), sc.fluid)
+    kw = dict(grid_res=(16, 32, 16), bin_capacity=72)
+    cfg = window_config(sc.config.replace(**kw), 16)
+    jcfg = jwindow_config(JConfig(**{**kw, "clamp_lo": 2.0, "clamp_hi_offset": 2.0}), 16)
+    assert cuda_step.route(cfg) == jax_route(jcfg, False) == "kernel"
+    b = tb.from_simstate(sc.state, cfg)
+    got = make_step(cfg, mode="cuda", substeps=1)(b, sc.fluid)
+    want = make_step(cfg, mode="bucketed", substeps=1)(b, sc.fluid)
+    assert torch.equal(got.pos, want.pos) and torch.equal(got.ids, want.ids)
 
 
 @pytest.mark.parametrize("over", [{"bin_capacity": 72}, {"clamp_lo": 0.5},
                                   {"clamp_hi_offset": 1.0}], ids=["k72", "lo", "hi"])
 def test_beyond_the_kernels_raises(over):
     """mode="cuda" refuses what the port's kernels do not take, naming
-    mode="bucketed"; the plain engine is never taken in their place."""
+    mode="bucketed"; the plain engine is never taken in their place. Only
+    edge clamps are refused: K = 72 routes to the kernels (their plain
+    versions on the CPU) and equals mode="bucketed" bit for bit."""
     sc = fluid_3d(grid_res=16, box=8.0, spacing=0.8, device="cpu")
     cfg = sc.config.replace(**over)
     b = tb.from_simstate(sc.state, cfg)
+    if "bin_capacity" in over:
+        assert cuda_step.route(cfg) == "kernel"
+        got = make_step(cfg, mode="cuda", substeps=2)(b, sc.fluid)
+        want = make_step(cfg, mode="bucketed", substeps=2)(b, sc.fluid)
+        for f in ("pos", "vel", "C", "mass", "ids", "lost", "deferred"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        return
     with pytest.raises(NotImplementedError, match="mode='bucketed'"):
         make_step(cfg, mode="cuda", substeps=1)(b, sc.fluid)
 
