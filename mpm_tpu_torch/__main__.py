@@ -15,6 +15,7 @@
     python -m mpm_tpu_torch run dam_break_2d --mode reference
     python -m mpm_tpu_torch run fluid_3d --mode binned --device cpu
     python -m mpm_tpu_torch render fluid_3d --render-mode legacy_quad
+    python -m mpm_tpu_torch render fluid_3d --width 1920 --height 1080 --trace frame.json
     python -m mpm_tpu_torch info
 
 `run` steps a scene headless and prints per-run stats and the bucket
@@ -29,6 +30,9 @@ step a linear particle state in plain PyTorch and draw it as a particle
 array. `--device cpu` takes the plain modes: bucketed, reference and
 binned. `--shards N` runs the x-slab decomposition (parallel/domain.py)
 over the first N visible cards, or N CPU slabs under `--device cpu`.
+`--trace PATH` writes a chrome trace of the frames after the first: the
+program's `mpm.*` spans (utils/timing.span) over the card's kernels and
+copies, on one clock.
 """
 
 from __future__ import annotations
@@ -98,6 +102,9 @@ def _common(q: argparse.ArgumentParser) -> None:
                    help="invert gravity from this frame on")
     q.add_argument("--metrics", default=None, metavar="PATH",
                    help="append JSONL metrics (utils/metrics.py) here")
+    q.add_argument("--trace", default=None, metavar="PATH",
+                   help="profile the frames after the first (host and CUDA activity) and "
+                        "write the chrome trace, with the program's mpm.* spans, here")
     q.add_argument("--orbit-sphere", action="store_true",
                    help="a repulsion sphere orbiting the domain centre, moved every frame")
 
@@ -422,7 +429,7 @@ def _log_counters(metrics, state) -> None:
 
 def cmd_run(args) -> None:
     from .utils.metrics import MetricsLogger
-    from .utils.timing import FrameStats, fence
+    from .utils.timing import FrameStats, end_trace, fence, start_trace
 
     device, scene, mesh, step, state, win = _setup(args)
     n = scene.state.num_particles
@@ -451,6 +458,7 @@ def cmd_run(args) -> None:
 
     stats = FrameStats()
     stats.tick()
+    prof = start_trace(args.trace, device)
     for i in range(args.frames):
         state = step(state, fluid_fn(i), inter_fn(i))
         fence(state)
@@ -460,6 +468,7 @@ def cmd_run(args) -> None:
             metrics.log("frame", i=i, last_ms=round(s_["last_ms"], 3),
                         avg_ms=round(s_["avg_ms"], 3))
         _checkpoint(args, i, state, scene, win)
+    end_trace(prof, args.trace)
     if args.guard:
         ok = step.flush()
         if step.failures or not ok:
@@ -675,12 +684,13 @@ def _write_frames(args, frame, state, scene, win, device, keys=None):
     next frames run. Each frame after the first records its device time
     (dispatch to the fenced frame) and the loop's host time (handing the
     previous frame over),
-    which the HUD's DEV | HOST line and the `frame` metrics read. Stops
+    which the HUD's DEV | HOST line and the `frame` metrics read. With
+    --trace the frames after the first run under the profiler. Stops
     early when the fly camera's keys quit. Prints the timing line and
     writes the metrics; returns the state."""
     from .render import write_png
     from .utils.metrics import MetricsLogger
-    from .utils.timing import FrameStats
+    from .utils.timing import FrameStats, end_trace, start_trace
 
     n = scene.state.num_particles
     substeps = args.substeps or scene.config.substeps
@@ -711,7 +721,7 @@ def _write_frames(args, frame, state, scene, win, device, keys=None):
             if len(pending) > 4:
                 pending.pop(0).result()
 
-        prev = None
+        prev = prof = None
         for i in range(args.frames):
             if keys is not None and keys.quit:
                 print(f"fly camera: quit at frame {i}")
@@ -735,11 +745,13 @@ def _write_frames(args, frame, state, scene, win, device, keys=None):
                 print(f"first frame: {first_s:.1f}s (builds the CUDA kernels on first use)")
                 metrics.log("compile", seconds=round(first_s, 3), scene=scene.name,
                             mode=args.mode, n=n)
+                prof = start_trace(args.trace, device)
             elif args.metrics:
                 s_ = stats.stats
                 metrics.log("frame", i=i, last_ms=round(s_["last_ms"], 3),
                             dev_ms=round(s_["dev_ms"], 3), host_ms=round(s_["host_ms"], 3))
             _checkpoint(args, i, state, scene, win)
+        end_trace(prof, args.trace)
         if keys is not None:
             keys.close()  # restore the terminal before the summary
         if prev is not None:

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from ..core.params import FluidParams, SimConfig
 from ..core.state import Grid, SimState, zero_grid
+from ..utils.timing import span
 from . import bspline, fixed_point
 from .grid import update_grid
 from .interact import Interaction, apply_interactions
@@ -534,10 +535,13 @@ def migrate(state: BucketState, config: SimConfig, slab: Slab = WHOLE) -> Bucket
 
 def substep(state: BucketState, config: SimConfig, fp: FluidParams,
             interactions: Sequence[Interaction] = ()) -> BucketState:
-    grid = p2g_bucketed(state, config, fp)
-    grid = update_grid(grid, config, fp)
-    state = g2p_bucketed(state, grid, config, fp, interactions)
-    return migrate(state, config)
+    """One plain substep; its halves open the spans of kernels P and F."""
+    with span("mpm.kernel.p2g"):
+        grid = p2g_bucketed(state, config, fp)
+        grid = update_grid(grid, config, fp)
+    with span("mpm.kernel.g2p"):
+        state = g2p_bucketed(state, grid, config, fp, interactions)
+        return migrate(state, config)
 
 
 # ------------------------------------------------------------- conversions

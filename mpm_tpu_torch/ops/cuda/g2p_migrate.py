@@ -24,6 +24,7 @@ import torch
 
 from ...core.params import FluidParams, SimConfig
 from ...core.state import Grid
+from ...utils.timing import spanned
 from ..bucketed import WHOLE, BucketState, Slab, g2p_bucketed, migrate
 from ..interact import Interaction, interaction_rows
 from . import build
@@ -111,6 +112,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@spanned("mpm.kernel.g2p")
 def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
                 fp: FluidParams, interactions: Sequence[Interaction] = (),
                 emit_splats: bool = False, render_scals: torch.Tensor | None = None,
@@ -120,7 +122,8 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
     With emit_splats=True it returns (state, splats): splats [5, C] are the
     per-cell splat points of the result (ops/cuda/extract_cells), for the 16
     `render_scals` of render_scals_for(view, cam). `slab`: shard mode (the
-    module docstring); `config` is then the slab's (bucketed.slab_config)."""
+    module docstring); `config` is then the slab's (bucketed.slab_config).
+    The whole host path runs in the span `mpm.kernel.g2p`."""
     global launches, emit_launches, shard_launches
     if emit_splats and render_scals is None:
         raise ValueError("emit_splats needs render_scals (render_scals_for(view, cam))")

@@ -17,6 +17,7 @@ import torch
 
 from ...core.params import BC_FRICTION, BC_SLIP, BC_STICK, FluidParams, SimConfig
 from ...core.state import Grid
+from ...utils.timing import spanned
 from ..bucketed import BucketState, p2g_bucketed
 from ..grid import update_grid
 from . import build
@@ -126,8 +127,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@spanned("mpm.kernel.p2g")
 def p2g_update(state: BucketState, config: SimConfig, fp: FluidParams) -> Grid:
-    """P2G + grid update: the plain version on the CPU, kernel P on CUDA."""
+    """P2G + grid update: the plain version on the CPU, kernel P on CUDA;
+    the whole host path in the span `mpm.kernel.p2g`."""
     global launches
     dev = state.pos.device
     if dev.type == "cpu":

@@ -19,6 +19,7 @@ from typing import Callable, Sequence
 
 from ..core.params import FluidParams, SimConfig
 from ..core.state import SimState
+from ..utils.timing import span
 from .bucketed import BucketState
 from .interact import Interaction
 
@@ -55,8 +56,9 @@ def make_frame_fn(config: SimConfig, mode: str = "auto",
     n = substeps if substeps is not None else config.substeps
 
     def frame(state, fp: FluidParams, interactions: Sequence[Interaction] = ()):
-        for _ in range(n):
-            state = substep_fn(state, config, fp, interactions)
+        with span("mpm.step.frame"):
+            for _ in range(n):
+                state = substep_fn(state, config, fp, interactions)
         return state
 
     return frame

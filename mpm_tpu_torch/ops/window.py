@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..core.params import FluidParams, SimConfig
 from ..core.state import SimState
+from ..utils.timing import span, spanned
 from . import bucketed
 from .interact import Interaction
 from .step import make_frame_fn
@@ -154,11 +155,12 @@ class YWindow:
     def _observe(self, state) -> int:
         """Read (max y, ceiling) back; returns the new ceiling hits."""
         nz = self.true_config.grid_res[2]
-        if self.mesh is None:
-            maxy, ceil = _poll_vals(state, self.wy, nz).tolist()
-        else:  # max y over the slabs; the counter is already the total
-            maxy = max(int(_poll_vals(s, self.wy, nz)[0]) for s in state.slabs)
-            ceil = int(state.ceiling)
+        with span("mpm.window.poll"):
+            if self.mesh is None:
+                maxy, ceil = _poll_vals(state, self.wy, nz).tolist()
+            else:  # max y over the slabs; the counter is already the total
+                maxy = max(int(_poll_vals(s, self.wy, nz)[0]) for s in state.slabs)
+                ceil = int(state.ceiling)
         self._confirmed = maxy
         hits = ceil - self._ceil_seen
         self._ceil_seen = ceil
@@ -178,6 +180,7 @@ class YWindow:
             b = shard_bucket_state(b, self.config, self.mesh)
         return b
 
+    @spanned("mpm.window.resize")
     def _resize_state(self, state, wy_new: int):
         old = window_config(self.true_config, self.wy)
         new = window_config(self.true_config, wy_new)
@@ -197,6 +200,7 @@ class YWindow:
             return state.mass.shape[-1] // (nx * nz)
         return state.slabs[0].mass.shape[-1] // (nx // self.mesh.n * nz)
 
+    @spanned("mpm.window.step")
     def step(self, state, fp: FluidParams, interactions: Sequence[Interaction] = ()):
         # a state of an earlier window (a guard's rollback snapshot) steps
         # at its own height, and the window follows it from there

@@ -14,6 +14,10 @@ SSFRParams.debug_draw_depth), "none" (the background) and "legacy_quad"
 bucket states only). Bucket states render through render_frame_buckets or
 make_full_frame_step; a particle array (the `--sphere-render-ratio` path,
 and the linear states of modes reference and binned) through render_frame.
+
+Under a profiler (utils/timing.span) make_full_frame_step's frame opens
+`mpm.frame` and `mpm.frame.substeps`, and each pass its `mpm.render.*`
+span: splat (with dilate inside), thickness, blur, shade, u8.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from ..ops.cuda import step as cuda_step
 from ..ops.cuda.extract_cells import render_scals_for
 from ..ops.fmath import pow_rn
+from ..utils.timing import span, spanned
 from .background import BackgroundScene, make_cubemap_sampler, render_background
 from .camera import Camera, as_view, crop_for_aabb, look_at
 from .extract_kernel import extract_cell_splats
@@ -122,13 +127,14 @@ def _frame_from_bufs(bufs, view, rc: RenderConfig, bg_color, bg_depth, cubemap_f
     if rc.mode == RENDER_DEPTH_DEBUG or rc.ssfr.debug_draw_depth:
         return depth_debug_image(depth, rc.ssfr)
     tmap = thickness_map(thickness_deposits, rc.ssfr) if thickness_deposits is not None else None
-    color, _live = shade(depth, bg_color, bg_depth, make_cubemap_sampler(cubemap_faces), rot,
-                         rc.ssfr, cam, thickness=tmap, crop=crop)
-    if crop is not None:
-        y0, x0, ch, cw = crop
-        full = bg_color.clone()
-        full[y0:y0 + ch, x0:x0 + cw] = color
-        color = full
+    with span("mpm.render.shade"):
+        color, _live = shade(depth, bg_color, bg_depth, make_cubemap_sampler(cubemap_faces), rot,
+                             rc.ssfr, cam, thickness=tmap, crop=crop)
+        if crop is not None:
+            y0, x0, ch, cw = crop
+            full = bg_color.clone()
+            full[y0:y0 + ch, x0:x0 + cw] = color
+            color = full
     return color
 
 
@@ -268,8 +274,10 @@ def make_full_frame_step(config, rc: RenderConfig, substeps: int, cubemap_faces=
     check_mode(rc)
     step = emitting_frame_fn(config, rc.camera, substeps)
 
+    @spanned("mpm.frame")
     def fn(state, fp, inter, view, bg):
-        state, cells = step(state, fp, inter, view)
+        with span("mpm.frame.substeps"):
+            state, cells = step(state, fp, inter, view)
         if rc.quality == "particle":
             img = render_frame_cells(_slot_splats(state, view, rc, config.grid_res), view, rc,
                                      bg=bg, cubemap_faces=cubemap_faces, thickness_cells=cells)
@@ -292,6 +300,7 @@ def domain_crop(rc: RenderConfig, config, view) -> RenderConfig:
     return rc if crop is None else dataclasses.replace(rc, crop=crop)
 
 
+@spanned("mpm.render.u8")
 def frame_to_u8(img: torch.Tensor) -> torch.Tensor:
     """Tonemap on the device (gamma 2.2, as image.to_uint8), so frames
     leave the card as u8."""

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fmath import sqrt_rn
+from ..utils.timing import spanned
 from .camera import Camera, view_to_screen, world_to_view
 from .extract_kernel import CELL_BG
 
@@ -202,6 +203,7 @@ def _windows(a: torch.Tensor, dy: int, pad: int, R: int, h: int, w: int) -> torc
     return a[pad - dy:pad - dy + h].unfold(1, w, 1)[:, pad - R:pad + R + 1]
 
 
+@spanned("mpm.render.dilate")
 def _dilate_spheres(bufs: SplatBuffers, cam: Camera, sphere_radius: float,
                     max_radius_px: int, with_velocity: bool = False,
                     with_normals: bool = False) -> SplatBuffers:
@@ -288,6 +290,7 @@ def buffers_from_zbuffer(d: torch.Tensor, cam: Camera, sphere_radius: float = 1.
                            with_velocity=key is not None, with_normals=with_normals)
 
 
+@spanned("mpm.render.splat")
 def splat_cells(cells: torch.Tensor, cam: Camera, sphere_radius: float = 1.0,
                 max_radius_px: int = 6, crop=None, with_velocity: bool = False,
                 with_normals: bool = False) -> SplatBuffers:
@@ -312,6 +315,7 @@ def _sum_by_pixel(n: int, pix: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.index_put_((pix,), w, accumulate=True)
 
 
+@spanned("mpm.render.thickness")
 def thickness_deposit(cells: torch.Tensor, cam: Camera, sphere_radius: float = 1.0,
                       crop=None) -> torch.Tensor:
     """The additive thickness splat [H, W] (the SSFR pass the reference

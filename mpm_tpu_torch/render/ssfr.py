@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fmath import pow_rn, sqrt_rn
+from ..utils.timing import spanned
 
 from .background import dot3
 from .blur_kernel import BG_DEPTH, FAR_GUARD, blur_depth_kernel
@@ -67,6 +68,7 @@ class SSFRParams:
     refraction_downsample: int = 1
 
 
+@spanned("mpm.render.blur")
 def blur_depth(depth: torch.Tensor, params: SSFRParams, cam: Camera) -> torch.Tensor:
     """The bilateral depth blur: kernel BL on CUDA, its plain version on
     the CPU."""
@@ -107,6 +109,7 @@ def gaussian_blur(img: torch.Tensor, radius: int) -> torch.Tensor:
     return img
 
 
+@spanned("mpm.render.thickness")
 def thickness_map(deposits: torch.Tensor, params: SSFRParams) -> torch.Tensor:
     """Blurred, scaled per-pixel thickness; `params.thickness` is its
     minimum (the reference's `minimum_thickness`)."""

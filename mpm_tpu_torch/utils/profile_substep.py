@@ -2,7 +2,7 @@
 port of scripts/profile_substep.py, the headless analogue of the
 reference's per-phase prints (MLSMPM3DFluidMultithread.cs:185-219).
 
-    python -m mpm_tpu_torch.utils.profile_substep [n_particles] [settle_substeps]
+    python -m mpm_tpu_torch.utils.profile_substep [n_particles] [settle_substeps] [--trace PATH]
 
 It steps `benchmark_scene(n)` (1M by default; K=8, bf16 vel/C) for
 `settle` substeps (150) through make_step(mode="cuda"), then times through
@@ -15,7 +15,10 @@ It steps `benchmark_scene(n)` (1M by default; K=8, bf16 vel/C) for
   the advection tail (plain) and the migration E (`migrate_planes`, whole:
   its z, y and x phases are one launch).
 It prints each phase's line, then the per-pass phases' sum and P + F beside
-the full substep, as the JAX script does. Needs a card.
+the full substep, as the JAX script does. `--trace PATH` times the phases
+under the torch profiler and writes its chrome trace: each call in its
+`mpm.phase.<name>` span over the kernels it launched (the profiler's host
+cost is then in the times). Needs a card.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from ..ops.cuda import planes
 from ..ops.cuda.migrate_planes import migrate_planes
 from ..ops.grid import update_grid
 from ..ops.step import make_step
-from .timing import PhaseTimer, fence
+from .timing import PhaseTimer, end_trace, fence, start_trace
 
 ITERS = 20
 PER_PASS = ("p2g (A+B)", "grid update", "g2p (D)", "advect tail", "migrate (E: z, y, x)")
@@ -85,6 +88,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("n_particles", nargs="?", type=int, default=1_000_000)
     ap.add_argument("settle", nargs="?", type=int, default=150)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="profile the timed phases and write the chrome trace, with each "
+                         "call's mpm.phase.* span, here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_substep: no CUDA device visible")
@@ -105,7 +111,9 @@ def main(argv=None) -> None:
           f"lost={int(state.lost)}", flush=True)
 
     pt = PhaseTimer()
+    prof = start_trace(args.trace, "cuda")
     time_phases(state, config, fluid, pt)
+    end_trace(prof, args.trace)
     full_ms = pt.totals["FULL substep"] / ITERS * 1e3
     print(f"# full substep: {full_ms:.3f} ms -> {n / (full_ms / 1e3) / 1e6:.1f} M "
           f"particle-steps/s, {full_ms * 1e6 / slots:.2f} ns/slot", flush=True)

@@ -1,6 +1,8 @@
-"""The settled 1M benchmark pool and its two render recipes (the JAX
-package's bench.py with-render lines), shared by chip_smoke.py and
-utils/profile_render so that both measure the same loop.
+"""The settled 1M benchmark pool, its two render recipes (the JAX
+package's bench.py with-render lines) and fenced frame windows: the set-up
+of chip_smoke.py's render loops, which the kernel scripts of utils/
+(profile_render_kernels, blur_variants, pass1_variants, profile_shard,
+wide_k) share.
 """
 
 from __future__ import annotations

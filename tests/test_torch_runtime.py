@@ -167,3 +167,18 @@ def test_metrics_file_appends(tmp_path):
         m.close()
     assert [json.loads(line)["event"] for line in path.read_text().splitlines()] == \
         ["summary", "summary"]
+
+
+def test_run_trace_writes_the_spans(tmp_path):
+    """`run --trace PATH` profiles the frames after the first and writes a
+    chrome trace holding the program's spans: a frame's, and the P and F
+    halves of each substep (the plain engine's on the CPU)."""
+    from mpm_tpu_torch.__main__ import main
+
+    path = tmp_path / "run.json"
+    main(["run", "dam_break_2d", "--device", "cpu", "--mode", "bucketed", "--substeps", "1",
+          "--frames", "2", "--trace", str(path)])
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") in ("cpu_op", "user_annotation") and e.get("ph") == "X"]
+    assert [n for n in names if n.startswith("mpm.")].count("mpm.step.frame") == 2
+    assert names.count("mpm.kernel.p2g") == 2 and names.count("mpm.kernel.g2p") == 2
