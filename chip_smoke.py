@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels from mpm_tpu_torch/csrc (P, F with its splat emission
-and its shard mode, X, BL, the 2D pair sim2d and migrate2d, the per-pass
+and its shard mode, X, BL, SH, the 2D pair sim2d and migrate2d, the per-pass
 kernels A, B, D and E, and the two sharded stages of P, one nvcc each, in
 parallel), holds each against its plain PyTorch version at full width (P
 and F in fixed-point mode too; the shard kernels on every slab of 4),
@@ -43,7 +43,8 @@ the CLI's reference, binned and legacy_quad modes ([cli-modes]), checks
 the native frame-I/O library on this host and the 1080p `render` CLI's
 PNGs through it ([native]), runs the BASELINE ladder's rows 3a and 4a (and
 3 and 4 while the run is short; [ladder]), and times each kernel beside
-its plain version and its roofline bound. Every main path runs with the launch counts set to 0 just before it
+its plain version and its roofline bound (SH at the benchmark cell's
+1080p crop). Every main path runs with the launch counts set to 0 just before it
 and read just after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
@@ -89,14 +90,17 @@ from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.parallel import domain
 from mpm_tpu_torch.parallel.render import demo_sharded_render, make_sharded_frame_step
 from mpm_tpu_torch.render import (Camera, RenderConfig, background_for_view, bucket_frame_2d,
-                                  default_view, frame_to_u8, load_cubemap, make_full_frame_step,
-                                  render_2d, render_frame, render_frame_buckets, write_png)
+                                  default_view, domain_crop, frame_to_u8, load_cubemap,
+                                  make_full_frame_step, render_2d, render_frame,
+                                  render_frame_buckets, write_png)
 from mpm_tpu_torch.render import blur_kernel as kb
 from mpm_tpu_torch.render import extract_kernel as kx
+from mpm_tpu_torch.render import pipeline as rpipeline
+from mpm_tpu_torch.render import shade_kernel as ksh
 from mpm_tpu_torch.render import ssfr as rssfr
 from mpm_tpu_torch.render.flycam import SpherePointer
 from mpm_tpu_torch.render.image import read_png_rgb
-from mpm_tpu_torch.render.splat import surface_band_uncovered
+from mpm_tpu_torch.render.splat import splat_cells, surface_band_uncovered
 from mpm_tpu_torch.utils import roofline, wide_k
 from mpm_tpu_torch.utils.render_bench import (N_POOL, frame_windows, pool_window, recipe_360,
                                               recipe_1080, settle)
@@ -110,7 +114,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_3D = os.path.join(ROOT, "tests", "golden", "fluid_3d_small_bucketed.npz")
 GOLDEN_2D = os.path.join(ROOT, "tests", "golden", "dam_break_2d_oracle.npz")
 KERNELS = ["p2g_update", "g2p_migrate", "substep2d", "extract_cells", "blur_depth", "planes",
-           "p2g_shard"]
+           "p2g_shard", "ssfr_shade"]
 
 
 def phase(name: str, msg: str) -> None:
@@ -231,6 +235,44 @@ def check_bl(depth, cam, label: str) -> float:
     phase("BL", f"{label} {tuple(depth.shape)}: max abs err {err:.3g} (bar atol 2e-4 "
           f"rtol 1e-5), bit-equal={bool(torch.equal(got, want))}, largest fsize {fmax}")
     return err, fmax
+
+
+def shade_buffers(dev) -> dict:
+    """Kernel SH's arguments at the benchmark cell flagship_3d.frame1080:
+    fluid_3d (157,464 particles, 64^3) at 1920x1080 under its default view
+    and domain crop, the blurred depth of kernel X's cell splats, the
+    procedural sky."""
+    sc = fluid_3d(device=dev)
+    state = bucketed.from_simstate(sc.state, sc.config)
+    view = default_view(sc.config.grid_res)
+    rc = domain_crop(RenderConfig(camera=Camera(width=1920, height=1080)), sc.config, view)
+    bg_color, bg_depth = background_for_view(rc, view, dev)
+    bufs = splat_cells(kx.extract_cell_splats(state, view, rc.camera), rc.camera,
+                       sphere_radius=rc.ssfr.particle_sphere_radius,
+                       max_radius_px=rc.max_radius_px, crop=rc.crop)
+    return dict(fluid_depth=rssfr.blur_depth(bufs.depth, rc.ssfr, rc.camera), bg_color=bg_color,
+                bg_depth=bg_depth, cubemap_faces=None, view=view, params=rc.ssfr, cam=rc.camera,
+                thickness=None, crop=rc.crop)
+
+
+def check_sh(kw: dict, label: str):
+    """Kernel SH vs plain: `live` identical and the u8 frames more than 1
+    level apart on at most 0.01% of the pixels (the benchmark's px_off_pct
+    bar). Returns (max abs err, live mask)."""
+    got, live = ksh.shade_kernel(**kw)
+    want, want_live = ksh.shade_plain(**kw)
+    torch.cuda.synchronize()
+    if not torch.equal(live, want_live) or int(live.sum()) == 0:
+        raise AssertionError(f"kernel SH ({label}): live differs in "
+                             f"{int((live != want_live).sum())} pixels, or none is live")
+    du8 = (frame_to_u8(got).int() - frame_to_u8(want).int()).abs()
+    off = float((du8 > 1).any(dim=-1).float().mean()) * 100
+    if off > 0.01:
+        raise AssertionError(f"kernel SH ({label}): {off:.4f}% of pixels off by > 1 u8 level")
+    err = max_err(got, want)
+    phase("SH", f"{label}: {int(live.sum())} live pixels, max abs err {err:.3g}, "
+          f"{off:.4f}% off by > 1 u8 level (bar 0.01), bit-equal={bool(torch.equal(got, want))}")
+    return err, live
 
 
 def per_pass_step(config, substeps: int):
@@ -830,8 +872,10 @@ def with_mode(rc, mode: str, **ssfr_kw):
 def plain_chain():
     """The render chain with the plain versions of its kernels on the card:
     the substeps through P's and F's plain versions, the emission through
-    the per-cell plain code, the blur through BL's plain version."""
-    saved = (cuda_step.substep, cuda_step.substep_emit, rssfr.blur_depth_kernel)
+    the per-cell plain code, the blur through BL's plain version, the shade
+    through SH's."""
+    saved = (cuda_step.substep, cuda_step.substep_emit, rssfr.blur_depth_kernel,
+             rpipeline.shade_kernel)
 
     def substep(state, config, fp, inter=()):
         return kf.g2p_migrate_plain(state, kp.p2g_update_plain(state, config, fp), config, fp,
@@ -843,10 +887,12 @@ def plain_chain():
 
     cuda_step.substep, cuda_step.substep_emit = substep, substep_emit
     rssfr.blur_depth_kernel = kb.blur_depth_plain
+    rpipeline.shade_kernel = ksh.shade_plain
     try:
         yield
     finally:
-        cuda_step.substep, cuda_step.substep_emit, rssfr.blur_depth_kernel = saved
+        (cuda_step.substep, cuda_step.substep_emit, rssfr.blur_depth_kernel,
+         rpipeline.shade_kernel) = saved
 
 
 def mean_du8(a, b) -> float:
@@ -862,14 +908,14 @@ def phase_render_modes(dev, smi: str, state, cfgw, pool, view):
     also more than 0.1 mean |du8| from the constant one), then 3 windows of
     40 frames from the same state with the launch counts read around them
     (the state they end in is dropped, so the later phases start where this
-    one did). Returns the emission's and BL's launches over the windows."""
+    one did). Returns the emission's, BL's and SH's launches over the windows."""
     subs = pool.config.substeps
     rc0 = recipe_360(pool.config, view)
     bg = background_for_view(rc0, view, dev)
     bg_u8 = frame_to_u8(bg[0])
     _, const = make_full_frame_step(cfgw, rc0, subs)(state, pool.fluid, (), view, bg)
     full = (0, 0, rc0.camera.height, rc0.camera.width)
-    total = {"g2p_migrate_emit": 0, "blur_depth": 0}
+    total = {"g2p_migrate_emit": 0, "blur_depth": 0, "ssfr_shade": 0}
     lost0 = int(state.lost)
     for mode, kw in MODES:
         rc = with_mode(rc0, mode, **kw)
@@ -901,6 +947,7 @@ def phase_render_modes(dev, smi: str, state, cfgw, pool, view):
         end, img, times = frame_windows(frame, state, pool.fluid, view, bg, 40, 3)
         launches = kernel_launches()
         ran = ["g2p_migrate_emit"] + (["blur_depth"] if mode in ("default", "depth_debug") else [])
+        ran += ["ssfr_shade"] if mode == "default" else []
         if min(launches[k] for k in ran) <= 0:
             raise AssertionError(f"{mode} did not launch {ran}: {launches}")
         for k in total:
@@ -2058,7 +2105,8 @@ def main() -> None:
     if int(state.lost) != lost0 or ceiling != 0:
         raise AssertionError(f"640x360 render: lost {int(state.lost) - lost0}, "
                              f"ceiling {ceiling}")
-    for k in ("p2g_update", "g2p_migrate", "g2p_migrate_emit", "blur_depth"):
+    for k in ("p2g_update", "g2p_migrate", "g2p_migrate_emit", "blur_depth",
+              "ssfr_shade"):
         if launches360[k] <= 0:
             raise AssertionError(f"640x360 render did not launch {k}: {launches360}")
     fimg = render_frame_buckets(state, view, rc, bg=bg)
@@ -2126,6 +2174,15 @@ def main() -> None:
                   roofline.blur_work(*blur_fsizes(d, cam)), device=True)
     if fsize_max < 100:
         raise AssertionError(f"kernel BL never ran fsize 100 (largest {fsize_max})")
+
+    # kernel SH against its plain version, then timed beside it, at the
+    # benchmark cell's 1080p crop
+    kw_sh = shade_buffers(dev)
+    err_sh, live_sh = check_sh(kw_sh, f"flagship_3d 1920x1080, crop {kw_sh['crop']}")
+    time_pair("ssfr_shade", lambda: ksh.shade_kernel(**kw_sh), lambda: ksh.shade_plain(**kw_sh),
+              f"1920x1080 crop {kw_sh['crop']}", roofline.shade_work(live_sh, kw_sh["bg_color"]),
+              device=True)
+    del kw_sh, live_sh
 
     # 13. main path: the windowed render path (`render --window auto`): the
     # air-window engine steps, render_frame_buckets draws through kernel X
@@ -2281,9 +2338,9 @@ def main() -> None:
 
     # launches: each kernel's count from the main path that runs it (the
     # pool for P and F, the 640x360 render loops of every mode for the
-    # emission and BL, the windowed render path for X)
+    # emission, BL and SH, the windowed render path for X)
     launches.update({k: launches360[k] + mode_launches[k]
-                     for k in ("g2p_migrate_emit", "blur_depth")})
+                     for k in ("g2p_migrate_emit", "blur_depth", "ssfr_shade")})
     launches["extract_cells"] = launches_win["extract_cells"]
     launches.update({k: launches2d[k] for k in ("sim2d", "migrate2d")})
     launches.update(launches_new)
@@ -2299,6 +2356,8 @@ def main() -> None:
                              "mpm_tpu/render/extract_kernel.py:34", err_x),
            "blur_depth": ("mpm_tpu_torch/csrc/blur_depth.cu",
                           "mpm_tpu/render/blur_kernel.py:61", err_bl),
+           "ssfr_shade": ("mpm_tpu_torch/csrc/ssfr_shade.cu",
+                          "none (plain jnp, mpm_tpu/render/ssfr.py:232)", err_sh),
            "sim2d": ("mpm_tpu_torch/csrc/substep2d.cu",
                      "mpm_tpu/ops/pallas/kernels2d.py:50", err_sim2d),
            "migrate2d": ("mpm_tpu_torch/csrc/substep2d.cu",

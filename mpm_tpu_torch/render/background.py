@@ -66,22 +66,30 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
+# The procedural sky's constants (kernel SH gets them by value, shade_kernel.py).
+SKY_HORIZON = (0.75, 0.85, 0.95)
+SKY_ZENITH = (0.25, 0.45, 0.75)
+SKY_GROUND = (0.35, 0.33, 0.3)
+SUN_DIR = np.asarray([0.35, 0.65, 0.2], np.float32)
+SUN_DIR = SUN_DIR / np.linalg.norm(SUN_DIR)  # float32
+SUN_COS, SUN_WIDTH = 0.998, 0.002  # the disc ramps up from cos_sun = SUN_COS over SUN_WIDTH
+SUN_COLOR = (6.0, 5.5, 4.5)
+
+
 def sky_color(dirs: torch.Tensor) -> torch.Tensor:
     """Procedural sky: horizon-to-zenith gradient plus a sun disc. dirs
     [..., 3] in world space, y up."""
     y = torch.clamp(dirs[..., 1], -1.0, 1.0)
-    horizon = _vec([0.75, 0.85, 0.95], dirs)
-    zenith = _vec([0.25, 0.45, 0.75], dirs)
-    ground = _vec([0.35, 0.33, 0.3], dirs)
+    horizon = _vec(SKY_HORIZON, dirs)
+    zenith = _vec(SKY_ZENITH, dirs)
+    ground = _vec(SKY_GROUND, dirs)
     t = torch.clamp(y, 0.0, 1.0)[..., None]
     sky = horizon * (1.0 - t) + zenith * t
     below = torch.clamp(-y, 0.0, 1.0)[..., None]
     col = sky * (1.0 - below) + ground * below
-    sun_dir = np.asarray([0.35, 0.65, 0.2], np.float32)
-    sun_dir = sun_dir / np.linalg.norm(sun_dir)
-    cos_sun = dot3(dirs, _vec(sun_dir, dirs))
-    sun = torch.clamp(_div(cos_sun - 0.998, 0.002), 0.0, 1.0)[..., None]
-    return col + sun * _vec([6.0, 5.5, 4.5], dirs)
+    cos_sun = dot3(dirs, _vec(SUN_DIR, dirs))
+    sun = torch.clamp(_div(cos_sun - SUN_COS, SUN_WIDTH), 0.0, 1.0)[..., None]
+    return col + sun * _vec(SUN_COLOR, dirs)
 
 
 def make_cubemap_sampler(faces: torch.Tensor | None = None):

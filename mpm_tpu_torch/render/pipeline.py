@@ -2,7 +2,7 @@
 
     splat points (kernel F's emission, kernel X, or every slot)
     -> z-buffer + sphere dilation (render/splat.py)
-    -> bilateral blur (kernel BL) -> SSFR shade -> composite
+    -> bilateral blur (kernel BL) -> SSFR shade and composite (kernel SH)
     -> u8 tonemap on the device
 
 Modes (screen_space_fluid_rendering.gd:5-7): "default" (full SSFR, with
@@ -31,13 +31,14 @@ from ..ops.cuda import step as cuda_step
 from ..ops.cuda.extract_cells import render_scals_for
 from ..ops.fmath import pow_rn
 from ..utils.timing import span, spanned
-from .background import BackgroundScene, make_cubemap_sampler, render_background
+from .background import BackgroundScene, render_background
 from .camera import Camera, as_view, crop_for_aabb, look_at
 from .extract_kernel import extract_cell_splats
 from .splat import (buffers_from_zbuffer, extract_band_slot_splats, extract_slot_splats,
                     splat_cells, splat_particles, thickness_deposit)
-from .ssfr import (SSFRParams, blur_depth, depth_debug_image, lit_spheres_shade, shade,
-                   thickness_map, velocity_spheres_composite)
+from .shade_kernel import shade_kernel
+from .ssfr import (SSFRParams, blur_depth, depth_debug_image, lit_spheres_shade, thickness_map,
+                   velocity_spheres_composite)
 
 RENDER_DEFAULT = "default"
 RENDER_VELOCITY_SPHERES = "velocity_spheres"
@@ -114,9 +115,9 @@ def _frame_from_bufs(bufs, view, rc: RenderConfig, bg_color, bg_depth, cubemap_f
     full background."""
     cam = rc.camera
     dev = bufs.depth.device
-    rot = as_view(view, dev)[:3, :3]
     if rc.mode == RENDER_LIT_SPHERES:
-        return lit_spheres_shade(bufs, bg_color, bg_depth, rot, rc.ssfr, cam)
+        return lit_spheres_shade(bufs, bg_color, bg_depth, as_view(view, dev)[:3, :3], rc.ssfr,
+                                 cam)
     if rc.mode == RENDER_VELOCITY_SPHERES:
         # |vel| / 10 as red, the depth-map shader's albedo (depth_map.gdshader:87)
         red = bufs.velocity / torch.tensor(10.0, device=dev)
@@ -128,13 +129,8 @@ def _frame_from_bufs(bufs, view, rc: RenderConfig, bg_color, bg_depth, cubemap_f
         return depth_debug_image(depth, rc.ssfr)
     tmap = thickness_map(thickness_deposits, rc.ssfr) if thickness_deposits is not None else None
     with span("mpm.render.shade"):
-        color, _live = shade(depth, bg_color, bg_depth, make_cubemap_sampler(cubemap_faces), rot,
-                             rc.ssfr, cam, thickness=tmap, crop=crop)
-        if crop is not None:
-            y0, x0, ch, cw = crop
-            full = bg_color.clone()
-            full[y0:y0 + ch, x0:x0 + cw] = color
-            color = full
+        color, _live = shade_kernel(depth, bg_color, bg_depth, cubemap_faces, view, rc.ssfr, cam,
+                                    thickness=tmap, crop=crop)
     return color
 
 

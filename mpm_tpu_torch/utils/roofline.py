@@ -161,6 +161,28 @@ def blur_work(fsize_x: torch.Tensor, fsize_y: torch.Tensor) -> tuple[int, int, i
     return nbytes, ops, exps
 
 
+# A live pixel of kernel SH (csrc/ssfr_shade.cu), counted from the code:
+# the normal from five view positions (95), the specular (20), the Fresnel
+# (6), the reflection and its rotation (15), the sky (38), the refraction's
+# sample (27), Beer's law and the composite (22), the live test (2). Of
+# them 7 special-function operations: the two powers (a logarithm and an
+# exponential each) and the three exponentials.
+SHADE_OPS = 225
+SHADE_SFU = 7
+
+
+def shade_work(live: torch.Tensor, bg_color: torch.Tensor,
+               thickness: bool = False) -> tuple[int, int, int]:
+    """(bytes, operations, special-function operations) of kernel SH from
+    its live mask [h, w] and the frame's background colour [H, W, 3]: the
+    frame's colour in once (a pixel's own, or a live pixel's refracted
+    sample) and out once; each buffer pixel's depth and background depth in
+    and its live byte out, and the thickness map in when there is one."""
+    n_live = int(live.sum())
+    nbytes = 2 * _nbytes(bg_color) + live.numel() * (4 + 4 + 1 + (4 if thickness else 0))
+    return nbytes, n_live * SHADE_OPS, n_live * SHADE_SFU
+
+
 def sim2d_work(state, config, n_inter: int = 0) -> tuple[int, int]:
     """(bytes, operations) of sim2d: mass, and pos, vel and C of the
     occupied slots in (32 B a slot in float32); pos, vel and C out. The

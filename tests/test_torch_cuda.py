@@ -1,4 +1,4 @@
-"""Kernels P, F, X and BL against their plain PyTorch versions on a CUDA
+"""Kernels P, F, X, BL and SH against their plain PyTorch versions on a CUDA
 card, at the small scene of tests/test_fused.py, P and F also in
 fixed-point mode, the per-pass kernels A, B, D and E there too, the two
 sharded stages of P and F's shard mode (and the sharded step against the
@@ -38,6 +38,7 @@ from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.ops.window import window_config
 from mpm_tpu_torch.parallel import domain
 from mpm_tpu_torch.utils import wide_k
+from torch_shade_cases import SHADE_CASES, shade_case
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -550,7 +551,7 @@ def kernel_counts():
     return kernel_launches()
 
 
-# ---- render kernels: X (extract), F's splat emission, BL (blur) ----------
+# ---- render kernels: X (extract), F's splat emission, BL (blur), SH (shade)
 
 def _view_cam():
     from mpm_tpu_torch.render import Camera, default_view
@@ -683,6 +684,37 @@ def test_kernel_bl_stress_matches_plain(dev, case):
     if case == "background":
         assert torch.equal(got, d)
 
+
+
+@pytest.mark.parametrize("case", SHADE_CASES)
+def test_kernel_sh_matches_plain(dev, case):
+    """Kernel SH against its plain version (ssfr.shade, the crop composited
+    over the background) at the benchmark's 1920x1080 frame and crop:
+    `live` identical, every pixel that is not live equal, and the u8 frames
+    more than 1 level apart on at most 0.01% of the pixels (the benchmark's
+    px_off_pct bar). One launch a call. Prints the share of bit-equal pixels
+    and the largest difference."""
+    from mpm_tpu_torch.render import frame_to_u8
+    from mpm_tpu_torch.render import shade_kernel as ksh
+
+    k = shade_case(case, dev, full_size=True)
+    n0 = ksh.launches
+    got, live = ksh.shade_kernel(**k)
+    torch.cuda.synchronize()
+    assert ksh.launches == n0 + 1
+    want, want_live = ksh.shade_plain(**k)
+    assert torch.equal(live, want_live) and int(live.sum()) > 0
+    on = torch.zeros(got.shape[:2], dtype=torch.bool, device=dev)
+    y0, x0, ch, cw = k["crop"] or (0, 0, *on.shape)
+    on[y0:y0 + ch, x0:x0 + cw] = live
+    assert torch.equal(got[~on], want[~on])
+    du8 = (frame_to_u8(got).int() - frame_to_u8(want).int()).abs()
+    off_pct = float((du8 > 1).any(dim=-1).float().mean()) * 100
+    equal_pct = float((got[on] == want[on]).all(dim=-1).float().mean()) * 100
+    print(f"kernel SH {case}: {int(live.sum())} live pixels, {equal_pct:.4f}% bit-equal, "
+          f"max abs diff {float((got - want).abs().max()):.3g}, {off_pct:.4f}% off by > 1 "
+          "u8 level (bar 0.01)")
+    assert off_pct <= 0.01
 
 def _x_state(dev, case, storage="float32"):
     """Bucket arrays (pos, vel, mass) of a kernel-X stress case, and the

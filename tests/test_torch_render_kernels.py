@@ -1,6 +1,7 @@
 """The render path's kernels against the JAX package on the CPU, where each
 wrapper takes its plain PyTorch version: kernel X (extract), kernel F's
-splat emission and kernel BL (blur). Inputs come from the JAX package (a
+splat emission, kernel BL (blur) and kernel SH's plain path and
+constants (shade). Inputs come from the JAX package (a
 scene of tests/test_fused.py, or numpy with a seed) and reach the port
 through convert.py. Each test states its bar."""
 
@@ -29,7 +30,9 @@ from mpm_tpu_torch.ops.cuda import step as cuda_step
 from mpm_tpu_torch.render import Camera
 from mpm_tpu_torch.render import blur_kernel as kb
 from mpm_tpu_torch.render import extract_kernel as kx
+from mpm_tpu_torch.render import shade_kernel as ksh
 from mpm_tpu_torch.render.splat import BG_DEPTH
+from torch_shade_cases import SHADE_CASES, shade_case
 
 torch.set_num_threads(2)
 
@@ -209,3 +212,91 @@ def test_blur_work_counts_exponentials():
     assert by == "operations"
     assert ms == pytest.approx(exps / (132 * 16 * 1.98e9) * 1e3)
     assert ms > ops / 67e12 * 1e3
+
+
+@pytest.mark.parametrize("case", SHADE_CASES)
+def test_shade_kernel_on_cpu_is_plain(case):
+    """Kernel SH's wrapper on CPU buffers: the plain shade, bit for bit, its
+    crop composited over the background as the pipeline did before the
+    kernel; no launch."""
+    from mpm_tpu_torch.render import ssfr
+    from mpm_tpu_torch.render.background import make_cubemap_sampler
+    from mpm_tpu_torch.render.camera import as_view
+
+    k = shade_case(case, "cpu", full_size=False)
+    n0 = ksh.launches
+    got, live = ksh.shade_kernel(**k)
+    assert ksh.launches == n0 == 0
+    color, want_live = ssfr.shade(k["fluid_depth"], k["bg_color"], k["bg_depth"],
+                                  make_cubemap_sampler(k["cubemap_faces"]),
+                                  as_view(k["view"])[:3, :3], k["params"], k["cam"],
+                                  thickness=k["thickness"], crop=k["crop"])
+    want = color
+    if k["crop"] is not None:
+        y0, x0, ch, cw = k["crop"]
+        want = k["bg_color"].clone()
+        want[y0:y0 + ch, x0:x0 + cw] = color
+    assert torch.equal(live, want_live) and 0 < int(live.sum())
+    assert torch.equal(got, want)
+
+
+def test_shade_args_built_once_per_view():
+    """Kernel SH's constants are built once for each view, camera,
+    parameters and crop: an unchanged view gets the same arguments back; a
+    view rotated in place, another crop or other parameters build anew."""
+    k = shade_case("crop", "cpu", full_size=False)
+    view, cam, params, crop = k["view"].clone(), k["cam"], k["params"], k["crop"]
+    shape = tuple(k["fluid_depth"].shape)
+    first = ksh.shade_args(view, cam, params, crop, shape)
+    assert ksh.shade_args(view, cam, params, crop, shape) is first
+    assert ksh.shade_args(view, cam, params, None, (cam.height, cam.width)) is not first
+    other = ksh.shade_args(view, cam, dataclasses.replace(params, specular_power=100.0), crop,
+                           shape)
+    assert other is not first and other.spec_power == 100.0
+    view[:3, :3] = view[:3, :3].flip(0)
+    moved = ksh.shade_args(view, cam, params, crop, shape)
+    assert moved is not first
+    assert list(moved.rot) == view[:3, :3].reshape(-1).tolist() != list(first.rot)
+    assert ksh.shade_args(view, cam, params, crop, shape) is moved
+
+
+@pytest.mark.parametrize("light_dir", [(0.0, -1.0, 0.0), (0.0, 0.0, -2.0)])
+def test_shade_args_match_the_plain_constants(light_dir):
+    """Kernel SH's constants equal, bit for bit, what the plain shade
+    computes from them on the CPU: the light in view space, the focal
+    length, the pixel centres' offsets, the absorption of Beer's law and
+    the sky's sun direction."""
+    from mpm_tpu_torch.render import background
+    from mpm_tpu_torch.render.camera import as_view, norm3
+
+    k = shade_case("crop", "cpu", full_size=False)
+    params = dataclasses.replace(k["params"], light_dir=light_dir)
+    cam, crop = k["cam"], k["crop"]
+    a = ksh.shade_args(k["view"], cam, params, crop, (crop[2], crop[3]))
+    rot = as_view(k["view"])[:3, :3]
+    lv = rot @ torch.tensor(params.light_dir, dtype=torch.float32)
+    lv = -lv / torch.clamp_min(norm3(lv), 1e-9)
+    assert list(a.light) == lv.tolist()
+    assert list(a.rot) == rot.reshape(-1).tolist()
+    assert a.focal == float(torch.tensor(cam.focal_px, dtype=torch.float32))
+    assert (a.ox, a.oy, a.half_w, a.half_h) == (0.5 + crop[1], 0.5 + crop[0], 80.0, 48.0)
+    diffuse = torch.tensor(np.asarray(params.diffuse_color, np.float32))
+    assert list(a.absorb) == (-params.optical_density * (1.0 - diffuse)).tolist()
+    assert list(a.sun_dir) == background.SUN_DIR.tolist()
+    assert (a.fh, a.fw, a.y0, a.x0, a.h, a.w, a.ds, a.faces) == (96, 160, *crop, 1, 0)
+
+
+def test_shade_work_counts_the_frame():
+    """Kernel SH's bound: the frame's colour in and out once, 9 bytes a
+    buffer pixel (13 with a thickness map), SHADE_OPS and SHADE_SFU a live
+    pixel; bound by bytes at the benchmark's frame."""
+    from mpm_tpu_torch.utils import roofline
+
+    live = torch.zeros(992, 1024, dtype=torch.bool)
+    live[100:900, 100:900] = True
+    bg = torch.zeros(1080, 1920, 3)
+    nbytes, ops, sfu = roofline.shade_work(live, bg)
+    assert nbytes == 2 * 12 * 1080 * 1920 + 9 * 992 * 1024
+    assert roofline.shade_work(live, bg, thickness=True)[0] == nbytes + 4 * 992 * 1024
+    assert (ops, sfu) == (640_000 * roofline.SHADE_OPS, 640_000 * roofline.SHADE_SFU)
+    assert roofline.bound_ms(nbytes, ops, sfu)[1] == "bytes"
