@@ -106,7 +106,7 @@ from mpm_tpu_torch.utils.render_bench import (N_POOL, frame_windows, pool_window
                                               recipe_1080, settle)
 from mpm_tpu_torch.utils.profile_2d import WINDOW_CALLS, warm_bench2d
 from mpm_tpu_torch.utils.profile_render_kernels import BL_ARGS, blur_buffers, device_ms
-from mpm_tpu_torch.utils.profile_shard import SLABS, config5_windows
+from mpm_tpu_torch.utils.profile_shard import SLABS, check_settled, config5_windows
 from mpm_tpu_torch.utils.guard import GuardedStep, state_is_finite
 from mpm_tpu_torch.utils.timing import cuda_time_ms, fenced_windows
 
@@ -710,18 +710,10 @@ def run_config5(dev, smi: str, **kw):
     ss = settle(win_s, ss, sc.fluid)
     torch.cuda.synchronize()
     t_s = time.perf_counter() - t0
-    g = domain.gather_bucket_state(ss)
-    differ = [f for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred",
-                          "ceiling") if not torch.equal(getattr(g, f), getattr(su, f))]
-    if differ or win_s.wy != win_u.wy or win_s.resizes != win_u.resizes:
-        raise AssertionError(f"config 5: the sharded settle differs from the unsharded one in "
-                             f"{differ}; wy {win_s.wy} vs {win_u.wy}")
-    del g
+    equal = check_settled(win_u, su, win_s, ss)
     phase("config5", f"{n} particles, grid {win_u.true_config.grid_res}, window wy={win_u.wy}, "
           f"K={win_u.config.bin_capacity} {win_u.config.storage_dtype}, {SLABS} slabs of one "
-          f"card: 150 settle substeps sharded equal the unsharded ones bit for bit (state, "
-          f"wy, resizes {win_u.resizes}, counters lost={int(su.lost)} deferred="
-          f"{int(su.deferred)} cfl_clamped={int(su.cfl_clamped)} ceiling={int(su.ceiling)}); "
+          f"card: 150 settle substeps sharded against unsharded: {equal}; "
           f"settle {t_u:.2f} s unsharded, {t_s:.2f} s sharded")
     tu, ts = [], []
     su, t = fenced_windows(win_u.step, su, sc.fluid, 10, 1)

@@ -27,6 +27,7 @@ import torch
 
 from ...core.params import FluidParams, SimConfig
 from ...core.state import Grid
+from ...utils.timing import spanned
 from ..bucketed import BucketState, Slab, force_coefs, p2g_pass1, p2g_pass2, slab_config
 from ..grid import update_grid
 from . import build
@@ -85,8 +86,10 @@ def _grid_dtype(config: SimConfig) -> torch.dtype:
     return torch.int32 if config.fixed_point else torch.float32
 
 
+@spanned("mpm.kernel.p2g_shard")
 def p2g1_shard(padded: BucketState, config: SimConfig, fp: FluidParams, x0: int) -> Grid:
-    """Stage 1: the plain version on the CPU, the kernel on CUDA."""
+    """Stage 1: the plain version on the CPU, the kernel on CUDA (the whole
+    host path in the span `mpm.kernel.p2g_shard`)."""
     global p2g1_launches
     if padded.pos.device.type == "cpu":
         return p2g1_shard_plain(padded, config, fp, x0)
@@ -107,9 +110,11 @@ def p2g1_shard(padded: BucketState, config: SimConfig, fp: FluidParams, x0: int)
     return Grid(mom=gmom, mass=gmass)
 
 
+@spanned("mpm.kernel.p2g_shard")
 def p2g2u_shard(padded: BucketState, grid1: Grid, config: SimConfig, fp: FluidParams,
                 x0: int) -> torch.Tensor:
-    """Stage 2: the plain version on the CPU, the kernel on CUDA."""
+    """Stage 2: the plain version on the CPU, the kernel on CUDA (the whole
+    host path in the span `mpm.kernel.p2g_shard`)."""
     global p2g2u_launches
     if padded.pos.device.type == "cpu":
         return p2g2u_shard_plain(padded, grid1, config, fp, x0)

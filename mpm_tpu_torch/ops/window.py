@@ -158,9 +158,11 @@ class YWindow:
         with span("mpm.window.poll"):
             if self.mesh is None:
                 maxy, ceil = _poll_vals(state, self.wy, nz).tolist()
-            else:  # max y over the slabs; the counter is already the total
-                maxy = max(int(_poll_vals(s, self.wy, nz)[0]) for s in state.slabs)
-                ceil = int(state.ceiling)
+            else:  # max y over the slabs, gathered on the first slab's device
+                # for one read; the counter is already the total on every slab
+                dev = state.slabs[0].device
+                vals = torch.stack([_poll_vals(s, self.wy, nz).to(dev) for s in state.slabs])
+                maxy, ceil = torch.stack([vals[:, 0].max(), vals[0, 1]]).tolist()
         self._confirmed = maxy
         hits = ceil - self._ceil_seen
         self._ceil_seen = ceil

@@ -24,11 +24,22 @@ substep, on every slab:
      emission on request), then the slab's own planes are kept.
 
 The exchanges are slicing and torch.cat of neighbour planes copied with
-`.to(device)`: between two cards PyTorch orders that copy after the work
-already queued on both devices' current streams, and on one card stream
-order does it. Counters count the slab's own planes only (the kernels'
-gate) and each slab's deltas are summed once per frame, as the JAX
-package's psum.
+`.to(device)` (spans `mpm.shard.halo`, `mpm.shard.grid`; the bytes they
+copy add to `halo_bytes`). Between two cards PyTorch runs such a copy on
+the source card's current stream: that stream first waits on an event
+recorded on the destination card's current stream, and the destination's
+stream then waits on an event recorded after the copy, so each exchange is
+a two-way barrier between neighbouring cards' streams and needs no
+synchronise of the host. With peer access between the cards (on a
+four-H100 NVLink host, every pair) a strided slice (each state-halo field,
+the grid velocity's planes: 36 of a substep's 42 copies on 4 slabs) is
+copied by a copy kernel on the source card that writes the neighbour's
+memory, and the contiguous grid-mass planes by a peer cudaMemcpyAsync.
+Config 5 on four such cards runs bit-equal to one card's unsharded window
+over 150 substeps (utils/profile_shard). On one card stream order alone
+orders the copies. Counters count the slab's own planes only (the kernels'
+gate) and each slab's deltas are summed once per frame (span
+`mpm.shard.counters`), as the JAX package's psum.
 
 The sort-based sharded step of the binned engine (domain.py:49-514) comes
 after it: `ShardConfig`, `shard_scene`, `make_sharded_step`, `gather_live`
@@ -51,9 +62,12 @@ from ..ops.cuda.extract_cells import cell_splats_plain
 from ..ops.cuda.g2p_migrate import g2p_migrate, g2p_migrate_plain
 from ..ops.grid import update_grid
 from ..ops.interact import Interaction
+from ..utils.timing import span, spanned
 
 COUNTERS = ("lost", "cfl_clamped", "deferred", "ceiling")
 HALO = 2  # state halo planes a side (the migration's reach plus one)
+
+halo_bytes = 0  # bytes copied between slabs so far: state halo and grid exchanges
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,9 +160,16 @@ def _dead_planes(like: torch.Tensor, pc: int, fill) -> torch.Tensor:
     return torch.full(shape, fill, dtype=like.dtype, device=like.device)
 
 
+def _plane_bytes(x: torch.Tensor, planes: int, pc: int) -> int:
+    """Bytes of `planes` planes of a [..., C] array."""
+    return x.numel() // x.shape[-1] * planes * pc * x.element_size()
+
+
+@spanned("mpm.shard.halo")
 def _exchange_state_halo(slabs: list[BucketState], pc: int) -> list[BucketState]:
     """The padded slabs: [left neighbour's last 2 planes | own | right
     neighbour's first 2 planes]; dead planes past the global ends."""
+    global halo_bytes
     n = len(slabs)
     out = []
     for a, s in enumerate(slabs):
@@ -162,14 +183,20 @@ def _exchange_state_halo(slabs: list[BucketState], pc: int) -> list[BucketState]
 
         out.append(s.replace(pos=pad("pos", 0.0), vel=pad("vel", 0.0), C=pad("C", 0.0),
                              mass=pad("mass", 0.0), ids=pad("ids", -1)))
+    # each of the n - 1 boundaries sends HALO planes of every field each way
+    halo_bytes += 2 * (n - 1) * sum(_plane_bytes(getattr(slabs[0], f), HALO, pc)
+                                    for f in ("pos", "vel", "C", "mass", "ids"))
     return out
 
 
+@spanned("mpm.shard.grid")
 def _exchange_grid(gs: list[torch.Tensor], loc: int, pc: int) -> list[torch.Tensor]:
     """Replace the incomplete end planes of each slab's grid ([..., (loc+6)
     * pc]: grid plane j is global plane x0 - 1 + j, complete on [2, loc+3])
     with the neighbours' complete ones, zero past the global ends."""
+    global halo_bytes
     n = len(gs)
+    halo_bytes += 2 * (n - 1) * _plane_bytes(gs[0], 2, pc)
     out = []
     for a, g in enumerate(gs):
         lo = (_planes(gs[a - 1], pc, loc, loc + 2).to(g.device) if a > 0
@@ -221,6 +248,7 @@ def make_sharded_frame_fn(config: SimConfig, mesh: SlabMesh, substeps: int | Non
     gates = [Slab(x0=x0, go=1, c_lo=HALO, c_hi=n_pad - 1 - HALO) for x0 in x0s]
     own = slice(HALO * pc, (HALO + loc) * pc)
 
+    @spanned("mpm.shard.substep")
     def substep(slabs, fp, inter, rscals):
         padded = _exchange_state_halo(slabs, pc)
         g1 = [stage1(p, cfg, fp, x0) for p, x0 in zip(padded, x0s)]
@@ -247,9 +275,10 @@ def make_sharded_frame_fn(config: SimConfig, mesh: SlabMesh, substeps: int | Non
             rs = render_scals if i == nsub - 1 else None
             slabs, splats = substep(slabs, fp, interactions, rs)
         # each slab counted its own planes' events: the totals are the sums
-        for f, c0 in zip(COUNTERS, totals):
-            total = c0 + sum(getattr(s, f).to(c0.device) for s in slabs)
-            slabs = [s.replace(**{f: total.to(s.device)}) for s in slabs]
+        with span("mpm.shard.counters"):
+            for f, c0 in zip(COUNTERS, totals):
+                total = c0 + sum(getattr(s, f).to(c0.device) for s in slabs)
+                slabs = [s.replace(**{f: total.to(s.device)}) for s in slabs]
         return ShardedState(slabs), (splats if render_scals is not None else None)
 
     return frame

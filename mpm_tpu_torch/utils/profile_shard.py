@@ -1,16 +1,18 @@
-"""Where config 5's time goes on one CUDA card: BASELINE.md's config 5
-(16M particles on 256^3, sharded) as chip_smoke.py runs it, the benchmark
-pool under the air window (headroom 4, chunks of 10 substeps) on 4 slabs of
-the card (parallel/domain.py), beside the same window unsharded.
-chip_smoke takes its scene and windows from here.
+"""Where config 5's time goes: BASELINE.md's config 5 (16M particles on
+256^3, sharded) as chip_smoke.py runs it, the benchmark pool under the air
+window (headroom 4, chunks of 10 substeps) on 4 x-slabs (parallel/domain.py),
+beside the same window unsharded on the first card. The slabs are one a
+card on the first four cards where four are visible, else all four on the
+one card. chip_smoke takes its scene and windows from here.
 
     python -m mpm_tpu_torch.utils.profile_shard
 
-For each of the two runs: settle 150 substeps, then the unprofiled wall
-time per substep in one fenced window of 100 substeps, then under
-torch.profiler one more window: the device time by kernel and op per
-substep and the device's busy share (profiled device time over the
-unprofiled substep). Needs a card.
+Both runs settle 150 substeps; the sharded state, gathered, must then equal
+the unsharded one bit for bit, with the same window height and counters.
+For each run, then: the unprofiled wall time per substep in one fenced
+window of 100 substeps, and under torch.profiler one more window: the
+device time by kernel and op per substep, summed over the cards, and its
+share of the unprofiled substep. Needs a card.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..models.scenes import benchmark_scene
 from ..ops.window import YWindow
 from ..parallel.domain import SlabMesh
 from .render_bench import settle
+from ..parallel.domain import gather_bucket_state
 from .timing import fenced_windows
 
 N_CONFIG5 = 16_000_000
@@ -30,15 +33,39 @@ SLABS = 4  # slabs on the one card, the counterpart of the JAX package's CPU mes
 CHUNK = 10  # substeps a window step
 
 
-def config5_windows(dev, n_target: int = N_CONFIG5, grid=GRID5):
-    """(scene, unsharded YWindow, YWindow over SLABS slabs of `dev`) of
-    config 5: the benchmark pool, mode "cuda", chunks of 10 substeps,
-    headroom 4 (the 1M pool's window policy)."""
+def config5_windows(dev, n_target: int = N_CONFIG5, grid=GRID5, mesh: SlabMesh | None = None):
+    """(scene, unsharded YWindow, YWindow over `mesh`, by default SLABS
+    slabs of `dev`) of config 5: the benchmark pool on `dev`, mode "cuda",
+    chunks of 10 substeps, headroom 4 (the 1M pool's window policy)."""
     sc = benchmark_scene(n_target, grid_res=grid, device=dev)
     win_u = YWindow(sc.config, mode="cuda", substeps=CHUNK, headroom=4)
     win_s = YWindow(sc.config, mode="cuda", substeps=CHUNK, headroom=4,
-                    mesh=SlabMesh.on(dev, SLABS))
+                    mesh=mesh if mesh is not None else SlabMesh.on(dev, SLABS))
     return sc, win_u, win_s
+
+
+def cards_mesh() -> SlabMesh:
+    """SLABS slabs, one a card of the first SLABS cards where as many are
+    visible, else all on the first card."""
+    if torch.cuda.device_count() >= SLABS:
+        return SlabMesh.of([torch.device("cuda", i) for i in range(SLABS)])
+    return SlabMesh.on(torch.device("cuda", 0), SLABS)
+
+
+FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling")
+
+
+def check_settled(win_u: YWindow, su, win_s: YWindow, ss) -> str:
+    """Raise unless the gathered sharded state equals the unsharded one bit
+    for bit, with the same window height and resizes; the line that says so."""
+    g = gather_bucket_state(ss)
+    differ = [f for f in FIELDS if not torch.equal(getattr(g, f), getattr(su, f))]
+    if differ or win_s.wy != win_u.wy or win_s.resizes != win_u.resizes:
+        raise AssertionError(f"config 5: the sharded settle differs from the unsharded one in "
+                             f"{differ}; wy {win_s.wy} vs {win_u.wy}")
+    return (f"equal bit for bit: {', '.join(FIELDS)}; wy {win_u.wy}, resizes {win_u.resizes}, "
+            f"lost {int(su.lost)}, deferred {int(su.deferred)}, cfl_clamped "
+            f"{int(su.cfl_clamped)}, ceiling {int(su.ceiling)}")
 
 
 def _profile(label: str, win: YWindow, state, fluid) -> None:
@@ -54,8 +81,8 @@ def _profile(label: str, win: YWindow, state, fluid) -> None:
     ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
     print(f"== config 5 {label}: window wy={win.wy}, unprofiled {wall:.4f} ms/substep; device "
-          f"busy {busy:.4f} ms/substep under the profiler ({busy / wall:.3f} of the "
-          f"unprofiled substep)")
+          f"time {busy:.4f} ms/substep under the profiler, summed over the cards ("
+          f"{busy / wall:.3f} of the unprofiled substep)")
     for title, rows in (("kernels", kernels), ("ops (device time of their kernels)", ops)):
         print(f"  -- by {title}")
         for e in rows[:14]:
@@ -69,11 +96,16 @@ def _profile(label: str, win: YWindow, state, fluid) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_shard needs a CUDA device")
-    sc, win_u, win_s = config5_windows(torch.device("cuda", 0))
-    for label, win in (("unsharded", win_u), (f"{SLABS} slabs", win_s)):
-        state = settle(win, win.init(sc.state), sc.fluid)
+    mesh = cards_mesh()
+    sc, win_u, win_s = config5_windows(torch.device("cuda", 0), mesh=mesh)
+    su = settle(win_u, win_u.init(sc.state), sc.fluid)
+    ss = settle(win_s, win_s.init(sc.state), sc.fluid)
+    where = ", ".join(str(d) for d in mesh.devices)
+    print(f"== config 5 settled, 150 substeps unsharded and on {SLABS} slabs ({where}): "
+          + check_settled(win_u, su, win_s, ss), flush=True)
+    for label, win, state in (("unsharded", win_u, su), (f"{SLABS} slabs on {where}", win_s, ss)):
         _profile(label, win, state, sc.fluid)
-        del state
+    del su, ss
 
 
 if __name__ == "__main__":
