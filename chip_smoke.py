@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the kernels from mpm_tpu_torch/csrc (P, F with its splat emission
-and its shard mode, X, BL, SH, the 2D pair sim2d and migrate2d, the per-pass
+and its shard mode, X, BL, SH, the splat kernels (z-buffer and dilation),
+the 2D pair sim2d and migrate2d, the per-pass
 kernels A, B, D and E, and the two sharded stages of P, one nvcc each, in
 parallel), holds each against its plain PyTorch version at full width (P
 and F in fixed-point mode too; the shard kernels on every slab of 4),
@@ -43,9 +44,11 @@ the CLI's reference, binned and legacy_quad modes ([cli-modes]), checks
 the native frame-I/O library on this host and the 1080p `render` CLI's
 PNGs through it ([native]), runs the BASELINE ladder's rows 3a and 4a (and
 3 and 4 while the run is short; [ladder]), and times each kernel beside
-its plain version and its roofline bound (SH at the benchmark cell's
-1080p crop). Every main path runs with the launch counts set to 0 just before it
-and read just after. Any failure raises, so the exit code is not 0. The line before the
+its plain version and its roofline bound (SH and the splat kernels at
+the benchmark cell's 1080p crop, where [splat] holds the z-buffer, the
+key and the dilation bit for bit against the plain chain). Every main
+path runs with the launch counts set to 0 just before it and read just
+after. Any failure raises, so the exit code is not 0. The line before the
 last is a JSON summary of the kernels; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits 1 and prints no result.
 """
@@ -97,6 +100,8 @@ from mpm_tpu_torch.render import blur_kernel as kb
 from mpm_tpu_torch.render import extract_kernel as kx
 from mpm_tpu_torch.render import pipeline as rpipeline
 from mpm_tpu_torch.render import shade_kernel as ksh
+from mpm_tpu_torch.render import splat as rsplat
+from mpm_tpu_torch.render import splat_kernel as ksp
 from mpm_tpu_torch.render import ssfr as rssfr
 from mpm_tpu_torch.render.flycam import SpherePointer
 from mpm_tpu_torch.render.image import read_png_rgb
@@ -114,7 +119,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_3D = os.path.join(ROOT, "tests", "golden", "fluid_3d_small_bucketed.npz")
 GOLDEN_2D = os.path.join(ROOT, "tests", "golden", "dam_break_2d_oracle.npz")
 KERNELS = ["p2g_update", "g2p_migrate", "substep2d", "extract_cells", "blur_depth", "planes",
-           "p2g_shard", "ssfr_shade"]
+           "p2g_shard", "ssfr_shade", "splat_dilate"]
 
 
 def phase(name: str, msg: str) -> None:
@@ -237,18 +242,24 @@ def check_bl(depth, cam, label: str) -> float:
     return err, fmax
 
 
-def shade_buffers(dev) -> dict:
-    """Kernel SH's arguments at the benchmark cell flagship_3d.frame1080:
-    fluid_3d (157,464 particles, 64^3) at 1920x1080 under its default view
-    and domain crop, the blurred depth of kernel X's cell splats, the
-    procedural sky."""
+def splat_inputs(dev):
+    """The splat pass's inputs at the benchmark cell flagship_3d.frame1080:
+    kernel X's cell splats of fluid_3d (157,464 particles, 64^3) at
+    1920x1080 under its default view, the view, and the render config with
+    its domain crop."""
     sc = fluid_3d(device=dev)
     state = bucketed.from_simstate(sc.state, sc.config)
     view = default_view(sc.config.grid_res)
     rc = domain_crop(RenderConfig(camera=Camera(width=1920, height=1080)), sc.config, view)
+    return kx.extract_cell_splats(state, view, rc.camera), view, rc
+
+
+def shade_buffers(dev) -> dict:
+    """Kernel SH's arguments at the benchmark cell flagship_3d.frame1080:
+    the blurred depth of splat_inputs' splat pass, the procedural sky."""
+    cells, view, rc = splat_inputs(dev)
     bg_color, bg_depth = background_for_view(rc, view, dev)
-    bufs = splat_cells(kx.extract_cell_splats(state, view, rc.camera), rc.camera,
-                       sphere_radius=rc.ssfr.particle_sphere_radius,
+    bufs = splat_cells(cells, rc.camera, sphere_radius=rc.ssfr.particle_sphere_radius,
                        max_radius_px=rc.max_radius_px, crop=rc.crop)
     return dict(fluid_depth=rssfr.blur_depth(bufs.depth, rc.ssfr, rc.camera), bg_color=bg_color,
                 bg_depth=bg_depth, cubemap_faces=None, view=view, params=rc.ssfr, cam=rc.camera,
@@ -273,6 +284,39 @@ def check_sh(kw: dict, label: str):
     phase("SH", f"{label}: {int(live.sum())} live pixels, max abs err {err:.3g}, "
           f"{off:.4f}% off by > 1 u8 level (bar 0.01), bit-equal={bool(torch.equal(got, want))}")
     return err, live
+
+
+def check_splat(cells, rc):
+    """The splat kernels vs the plain chain at the benchmark cell's crop,
+    bit for bit: the z-buffer and the dilation (one launch of each), then
+    the whole frame's key, z-buffer and the lit mode's tracked dilation
+    (depth, velocity, sx, sy). Returns the crop's z-buffer."""
+    cam, crop = rc.camera, rc.crop
+    r, R = rc.ssfr.particle_sphere_radius, rc.max_radius_px
+    n0 = (ksp.zbuffer_launches, ksp.dilate_launches)
+    d = rsplat.zbuffer_cells(cells, cam, crop)
+    got = rsplat.buffers_from_zbuffer(d, cam, r, R)
+    torch.cuda.synchronize()
+    launched = (ksp.zbuffer_launches - n0[0], ksp.dilate_launches - n0[1])
+    wd = rsplat.zbuffer_cells_plain(cells, cam, crop)
+    want = rsplat.buffers_from_zbuffer_plain(wd, cam, r, R)
+    lit = rsplat.buffers_from_zbuffer(rsplat.zbuffer_cells(cells, cam), cam, r, R,
+                                      key=rsplat.velocity_key(cells, cam), with_normals=True)
+    wlit = rsplat.buffers_from_zbuffer_plain(rsplat.zbuffer_cells_plain(cells, cam), cam, r, R,
+                                             key=rsplat.velocity_key_plain(cells, cam),
+                                             with_normals=True)
+    torch.cuda.synchronize()
+    same = {"zbuffer": torch.equal(d, wd), "depth": torch.equal(got.depth, want.depth)}
+    same.update({f"lit {f}": torch.equal(getattr(lit, f), getattr(wlit, f))
+                 for f in ("depth", "velocity", "sx", "sy")})
+    covered = int((got.depth < rsplat.BG_DEPTH).sum())
+    if launched != (1, 1) or not all(same.values()) or covered == 0:
+        raise AssertionError(f"splat kernels at {crop}: launches {launched} (want (1, 1)), "
+                             f"bit-equal {same}, {covered} pixels covered")
+    phase("splat", f"1920x1080 crop {crop}, R {R}: z-buffer and dilation bit-equal to the plain "
+          f"chain ({covered} of {d.numel()} pixels covered), one launch each; the full frame's "
+          f"key and lit-mode dilation (depth, velocity, sx, sy) bit-equal too")
+    return d
 
 
 def per_pass_step(config, substeps: int):
@@ -864,10 +908,12 @@ def with_mode(rc, mode: str, **ssfr_kw):
 def plain_chain():
     """The render chain with the plain versions of its kernels on the card:
     the substeps through P's and F's plain versions, the emission through
-    the per-cell plain code, the blur through BL's plain version, the shade
+    the per-cell plain code, the z-buffer, key and dilation through the
+    plain splat pass, the blur through BL's plain version, the shade
     through SH's."""
     saved = (cuda_step.substep, cuda_step.substep_emit, rssfr.blur_depth_kernel,
-             rpipeline.shade_kernel)
+             rpipeline.shade_kernel, rsplat.zbuffer_cells, rsplat.velocity_key,
+             rsplat.buffers_from_zbuffer)
 
     def substep(state, config, fp, inter=()):
         return kf.g2p_migrate_plain(state, kp.p2g_update_plain(state, config, fp), config, fp,
@@ -880,11 +926,15 @@ def plain_chain():
     cuda_step.substep, cuda_step.substep_emit = substep, substep_emit
     rssfr.blur_depth_kernel = kb.blur_depth_plain
     rpipeline.shade_kernel = ksh.shade_plain
+    rsplat.zbuffer_cells = rsplat.zbuffer_cells_plain
+    rsplat.velocity_key = rsplat.velocity_key_plain
+    rsplat.buffers_from_zbuffer = rsplat.buffers_from_zbuffer_plain
     try:
         yield
     finally:
         (cuda_step.substep, cuda_step.substep_emit, rssfr.blur_depth_kernel,
-         rpipeline.shade_kernel) = saved
+         rpipeline.shade_kernel, rsplat.zbuffer_cells, rsplat.velocity_key,
+         rsplat.buffers_from_zbuffer) = saved
 
 
 def mean_du8(a, b) -> float:
@@ -900,14 +950,16 @@ def phase_render_modes(dev, smi: str, state, cfgw, pool, view):
     also more than 0.1 mean |du8| from the constant one), then 3 windows of
     40 frames from the same state with the launch counts read around them
     (the state they end in is dropped, so the later phases start where this
-    one did). Returns the emission's, BL's and SH's launches over the windows."""
+    one did). Returns the emission's, BL's, SH's and the splat kernels'
+    launches over the windows."""
     subs = pool.config.substeps
     rc0 = recipe_360(pool.config, view)
     bg = background_for_view(rc0, view, dev)
     bg_u8 = frame_to_u8(bg[0])
     _, const = make_full_frame_step(cfgw, rc0, subs)(state, pool.fluid, (), view, bg)
     full = (0, 0, rc0.camera.height, rc0.camera.width)
-    total = {"g2p_migrate_emit": 0, "blur_depth": 0, "ssfr_shade": 0}
+    total = {"g2p_migrate_emit": 0, "blur_depth": 0, "ssfr_shade": 0, "splat_zbuffer": 0,
+             "splat_dilate": 0}
     lost0 = int(state.lost)
     for mode, kw in MODES:
         rc = with_mode(rc0, mode, **kw)
@@ -938,7 +990,8 @@ def phase_render_modes(dev, smi: str, state, cfgw, pool, view):
         reset_launches()
         end, img, times = frame_windows(frame, state, pool.fluid, view, bg, 40, 3)
         launches = kernel_launches()
-        ran = ["g2p_migrate_emit"] + (["blur_depth"] if mode in ("default", "depth_debug") else [])
+        ran = ["g2p_migrate_emit", "splat_zbuffer", "splat_dilate"]
+        ran += ["blur_depth"] if mode in ("default", "depth_debug") else []
         ran += ["ssfr_shade"] if mode == "default" else []
         if min(launches[k] for k in ran) <= 0:
             raise AssertionError(f"{mode} did not launch {ran}: {launches}")
@@ -2050,7 +2103,7 @@ def main() -> None:
         phase("time", f"{kname} at {shape}: kernel {k1:.4f} / {k2:.4f} ms{dev_ms}, "
               f"plain {p1:.4f} / {p2:.4f} ms; bound {bounds[kname][0]:.5f} ms by "
               f"{bounds[kname][1]} ({work[0]} B, {work[1]} ops"
-              f"{f', {work[2]} exponentials' if len(work) > 2 else ''}) [{smi}]")
+              f"{f', {work[2]} special-function ops' if len(work) > 2 else ''}) [{smi}]")
 
     for kname, (kern, plain, work) in runs.items():
         time_pair(kname, kern, plain, f"window {cfgw.grid_res} K={cfgw.bin_capacity}", work)
@@ -2098,7 +2151,7 @@ def main() -> None:
         raise AssertionError(f"640x360 render: lost {int(state.lost) - lost0}, "
                              f"ceiling {ceiling}")
     for k in ("p2g_update", "g2p_migrate", "g2p_migrate_emit", "blur_depth",
-              "ssfr_shade"):
+              "ssfr_shade", "splat_zbuffer", "splat_dilate"):
         if launches360[k] <= 0:
             raise AssertionError(f"640x360 render did not launch {k}: {launches360}")
     fimg = render_frame_buckets(state, view, rc, bg=bg)
@@ -2166,6 +2219,22 @@ def main() -> None:
                   roofline.blur_work(*blur_fsizes(d, cam)), device=True)
     if fsize_max < 100:
         raise AssertionError(f"kernel BL never ran fsize 100 (largest {fsize_max})")
+
+    # the splat kernels against the plain chain, then timed beside it, at
+    # the benchmark cell's 1080p crop
+    cells_sp, _, rc_sp = splat_inputs(dev)
+    cam_sp, crop_sp, R_sp = rc_sp.camera, rc_sp.crop, rc_sp.max_radius_px
+    r_sp = rc_sp.ssfr.particle_sphere_radius
+    d_sp = check_splat(cells_sp, rc_sp)
+    time_pair("splat_zbuffer", lambda: rsplat.zbuffer_cells(cells_sp, cam_sp, crop_sp),
+              lambda: rsplat.zbuffer_cells_plain(cells_sp, cam_sp, crop_sp),
+              f"{cells_sp.shape[1]} cell splats, crop {crop_sp}",
+              roofline.zbuffer_work(cells_sp, crop_sp[2], crop_sp[3]), device=True)
+    time_pair("splat_dilate", lambda: rsplat.buffers_from_zbuffer(d_sp, cam_sp, r_sp, R_sp),
+              lambda: rsplat.buffers_from_zbuffer_plain(d_sp, cam_sp, r_sp, R_sp),
+              f"crop {crop_sp} R {R_sp}, {int((d_sp < rsplat.BG_DEPTH).sum())} centres",
+              roofline.dilate_work(d_sp, cam_sp, r_sp, R_sp), device=True)
+    del cells_sp, d_sp
 
     # kernel SH against its plain version, then timed beside it, at the
     # benchmark cell's 1080p crop
@@ -2330,9 +2399,10 @@ def main() -> None:
 
     # launches: each kernel's count from the main path that runs it (the
     # pool for P and F, the 640x360 render loops of every mode for the
-    # emission, BL and SH, the windowed render path for X)
+    # emission, BL, SH and the splat kernels, the windowed render path for X)
     launches.update({k: launches360[k] + mode_launches[k]
-                     for k in ("g2p_migrate_emit", "blur_depth", "ssfr_shade")})
+                     for k in ("g2p_migrate_emit", "blur_depth", "ssfr_shade", "splat_zbuffer",
+                               "splat_dilate")})
     launches["extract_cells"] = launches_win["extract_cells"]
     launches.update({k: launches2d[k] for k in ("sim2d", "migrate2d")})
     launches.update(launches_new)
@@ -2350,6 +2420,10 @@ def main() -> None:
                           "mpm_tpu/render/blur_kernel.py:61", err_bl),
            "ssfr_shade": ("mpm_tpu_torch/csrc/ssfr_shade.cu",
                           "none (plain jnp, mpm_tpu/render/ssfr.py:232)", err_sh),
+           "splat_zbuffer": ("mpm_tpu_torch/csrc/splat_dilate.cu",
+                             "none (plain jnp, mpm_tpu/render/splat.py:304)", 0.0),
+           "splat_dilate": ("mpm_tpu_torch/csrc/splat_dilate.cu",
+                            "none (plain jnp, mpm_tpu/render/splat.py:228)", 0.0),
            "sim2d": ("mpm_tpu_torch/csrc/substep2d.cu",
                      "mpm_tpu/ops/pallas/kernels2d.py:50", err_sim2d),
            "migrate2d": ("mpm_tpu_torch/csrc/substep2d.cu",

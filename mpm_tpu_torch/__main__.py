@@ -265,7 +265,7 @@ def _print_counters(state) -> None:
 def kernel_launches() -> dict:
     """Launch counts of the port's CUDA kernels in this process."""
     from .ops.cuda import g2p_migrate, migrate_planes, p2g_shard, p2g_update, planes, substep2d
-    from .render import blur_kernel, extract_kernel, shade_kernel
+    from .render import blur_kernel, extract_kernel, shade_kernel, splat_kernel
 
     return {"p2g_update": p2g_update.launches, "g2p_migrate": g2p_migrate.launches,
             "g2p_migrate_emit": g2p_migrate.emit_launches,
@@ -274,6 +274,8 @@ def kernel_launches() -> dict:
             "sim2d": substep2d.sim2d_launches, "migrate2d": substep2d.migrate2d_launches,
             "extract_cells": extract_kernel.launches, "blur_depth": blur_kernel.launches,
             "ssfr_shade": shade_kernel.launches,
+            "splat_zbuffer": splat_kernel.zbuffer_launches,
+            "splat_dilate": splat_kernel.dilate_launches,
             "p2g1_planes": planes.p2g1_launches, "p2g2_planes": planes.p2g2_launches,
             "g2p_planes": planes.g2p_launches, "migrate_planes": migrate_planes.launches}
 
@@ -281,12 +283,13 @@ def kernel_launches() -> dict:
 def reset_kernel_launches() -> None:
     """Sets every count kernel_launches reads to 0."""
     from .ops.cuda import g2p_migrate, migrate_planes, p2g_shard, p2g_update, planes, substep2d
-    from .render import blur_kernel, extract_kernel, shade_kernel
+    from .render import blur_kernel, extract_kernel, shade_kernel, splat_kernel
 
     p2g_update.launches = g2p_migrate.launches = g2p_migrate.emit_launches = 0
     p2g_shard.p2g1_launches = p2g_shard.p2g2u_launches = g2p_migrate.shard_launches = 0
     substep2d.sim2d_launches = substep2d.migrate2d_launches = 0
     extract_kernel.launches = blur_kernel.launches = shade_kernel.launches = 0
+    splat_kernel.zbuffer_launches = splat_kernel.dilate_launches = 0
     planes.p2g1_launches = planes.p2g2_launches = planes.g2p_launches = 0
     migrate_planes.launches = 0
 

@@ -1,5 +1,6 @@
 """The SSFR renderer of the port (``mpm_tpu.render``): kernel X
-(render/extract_kernel.py), kernel BL (render/blur_kernel.py) and kernel SH
+(render/extract_kernel.py), the splat kernels (z-buffer and dilation,
+render/splat_kernel.py), kernel BL (render/blur_kernel.py) and kernel SH
 (render/shade_kernel.py) in CUDA, the rest in plain PyTorch; every render mode of the JAX package (legacy_quad
 in render/legacy.py), the thickness pass, cubemap files, the particle-array
 renderer; and the 2D frames of render/render2d.py."""

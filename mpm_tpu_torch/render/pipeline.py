@@ -1,7 +1,7 @@
 """Render pipeline (port of ``mpm_tpu.render.pipeline``):
 
     splat points (kernel F's emission, kernel X, or every slot)
-    -> z-buffer + sphere dilation (render/splat.py)
+    -> z-buffer + sphere dilation (render/splat.py; the splat kernels)
     -> bilateral blur (kernel BL) -> SSFR shade and composite (kernel SH)
     -> u8 tonemap on the device
 
@@ -37,6 +37,7 @@ from .extract_kernel import extract_cell_splats
 from .splat import (buffers_from_zbuffer, extract_band_slot_splats, extract_slot_splats,
                     splat_cells, splat_particles, thickness_deposit)
 from .shade_kernel import shade_kernel
+from .splat_kernel import MAX_RADIUS_PX
 from .ssfr import (SSFRParams, blur_depth, depth_debug_image, lit_spheres_shade, thickness_map,
                    velocity_spheres_composite)
 
@@ -79,6 +80,9 @@ def check_mode(rc: RenderConfig) -> None:
         raise ValueError(f"unknown render mode {rc.mode!r}")
     if rc.quality not in ("cell", "particle"):
         raise ValueError(f"unknown render quality {rc.quality!r}")
+    if not 0 <= rc.max_radius_px <= MAX_RADIUS_PX:
+        raise ValueError(f"max_radius_px {rc.max_radius_px} is outside 0..{MAX_RADIUS_PX} (the "
+                         "splat kernel stages a tile and its R-pixel halo in shared memory)")
 
 
 def background_for_view(rc: RenderConfig, view, device=None):

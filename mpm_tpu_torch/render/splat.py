@@ -12,6 +12,11 @@ the velocity and lit-sphere modes. `thickness_deposit` adds each cell's
 material at its centre pixel, in the same bits on every call.
 `splat_particles` z-buffers a particle array by sorting (the
 `--sphere-render-ratio` path).
+
+On a CUDA device the z-buffer, the key and the dilation run as the splat
+kernels (render/splat_kernel.py, csrc/splat_dilate.cu), bit for bit these
+plain versions (`zbuffer_cells_plain`, `velocity_key_plain`,
+`buffers_from_zbuffer_plain`, `_dilate_spheres`), which run on the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 
 from ..ops.fmath import sqrt_rn
 from ..utils.timing import spanned
+from . import splat_kernel
 from .camera import Camera, view_to_screen, world_to_view
 from .extract_kernel import CELL_BG
 
@@ -174,7 +180,15 @@ def zbuffer_cells(cells: torch.Tensor, cam: Camera, crop=None) -> torch.Tensor:
     """The pre-dilation z-buffer: the scatter-min depth [H, W] of the splat
     points' centre pixels, BG_DEPTH where empty. With `crop` = (y0, x0, ch,
     cw) the buffer is the crop rectangle and splats outside it are dropped,
-    so the crop must be conservative (camera.crop_for_aabb)."""
+    so the crop must be conservative (camera.crop_for_aabb). The plain
+    version on the CPU, the splat kernel's z-buffer on a card."""
+    if cells.device.type == "cpu":
+        return zbuffer_cells_plain(cells, cam, crop)
+    return splat_kernel.zbuffer(cells, cam, crop)
+
+
+def zbuffer_cells_plain(cells: torch.Tensor, cam: Camera, crop=None) -> torch.Tensor:
+    """zbuffer_cells as a scatter_reduce_ amin."""
     pix, on, h, w = _pixels(cells, cam, crop)
     depth = cells[2]
     d = torch.full((h * w + 1,), BG_DEPTH, dtype=depth.dtype, device=depth.device)
@@ -187,7 +201,15 @@ def velocity_key(cells: torch.Tensor, cam: Camera, crop=None) -> torch.Tensor:
     bits of the depth & ~0xFFF) | clip(|vel| * 64, 0, 4095). The bits of a
     positive float order as its value, so the nearest splat's key wins (to
     2^-11 of the depth); KEY_EMPTY where no splat lands. Exact in any order,
-    so slabs composite it with a min."""
+    so slabs composite it with a min. The plain version on the CPU, the
+    splat kernel's key on a card."""
+    if cells.device.type == "cpu":
+        return velocity_key_plain(cells, cam, crop)
+    return splat_kernel.zbuffer(cells, cam, crop, key=True)
+
+
+def velocity_key_plain(cells: torch.Tensor, cam: Camera, crop=None) -> torch.Tensor:
+    """velocity_key as a scatter_reduce_ amin."""
     pix, on, h, w = _pixels(cells, cam, crop)
     dbits = torch.clamp_min(cells[2], 1e-6).view(torch.int32) & ~0xFFF
     qvel = torch.clamp(cells[3] * 64.0, 0.0, 4095.0).to(torch.int32)
@@ -275,12 +297,35 @@ def _dilate_spheres(bufs: SplatBuffers, cam: Camera, sphere_radius: float,
     return SplatBuffers(depth=best, velocity=best_v, sx=best_sx, sy=best_sy)
 
 
+@spanned("mpm.render.dilate")
+def _dilate_kernel(depth: torch.Tensor, cam: Camera, sphere_radius: float, max_radius_px: int,
+                   velocity=None, key=None, raw: bool = False, with_velocity: bool = False,
+                   with_normals: bool = False) -> SplatBuffers:
+    """_dilate_spheres (after buffers_from_zbuffer_plain's decode, with
+    `raw`) as one launch of the splat kernel."""
+    return SplatBuffers(*splat_kernel.dilate(depth, cam, sphere_radius, max_radius_px, velocity,
+                                             key, raw, with_velocity, with_normals))
+
+
 def buffers_from_zbuffer(d: torch.Tensor, cam: Camera, sphere_radius: float = 1.0,
                          max_radius_px: int = 6, key: torch.Tensor | None = None,
                          with_normals: bool = False) -> SplatBuffers:
     """The second half of splat_cells: decode the velocity key (when given;
     the velocity is then tracked through the dilation) and dilate the raw
-    z-buffer into sphere impostors."""
+    z-buffer into sphere impostors. The plain version on the CPU, one launch
+    of the splat kernel's dilation on a card."""
+    if d.device.type == "cpu":
+        return buffers_from_zbuffer_plain(d, cam, sphere_radius, max_radius_px, key,
+                                          with_normals)
+    return _dilate_kernel(d, cam, sphere_radius, max_radius_px, key=key, raw=True,
+                          with_velocity=key is not None, with_normals=with_normals)
+
+
+def buffers_from_zbuffer_plain(d: torch.Tensor, cam: Camera, sphere_radius: float = 1.0,
+                               max_radius_px: int = 6, key: torch.Tensor | None = None,
+                               with_normals: bool = False) -> SplatBuffers:
+    """buffers_from_zbuffer in plain PyTorch: the decode, then
+    _dilate_spheres."""
     occ = d < BG_DEPTH
     vel = None
     if key is not None:
@@ -372,5 +417,8 @@ def splat_particles(pos: torch.Tensor, vel_mag: torch.Tensor, view, cam: Camera,
         idx = torch.arange(pos.shape[-1], device=pos.device)
         keep = keep & (((idx % 100) + 1).float() <= float(np.float32(sphere_render_ratio * 100.0)))
     bufs = _point_deposit(px, py, depth, vel_mag, cam, keep)
-    return _dilate_spheres(bufs, cam, sphere_radius, max_radius_px, with_velocity=True,
-                           with_normals=with_normals)
+    if bufs.depth.device.type == "cpu":
+        return _dilate_spheres(bufs, cam, sphere_radius, max_radius_px, with_velocity=True,
+                               with_normals=with_normals)
+    return _dilate_kernel(bufs.depth, cam, sphere_radius, max_radius_px, velocity=bufs.velocity,
+                          with_velocity=True, with_normals=with_normals)

@@ -2,9 +2,9 @@
 largest of the bytes the function must move over the card's memory rate,
 the float32 operations it must do over the card's rate outside the tensor
 cores (NVIDIA's data sheet, SXM part: 3.35 TB/s, 67 TFLOP/s; both assume
-the full 700 W power limit) and, where it takes exponentials, those over
-the special-function units' rate: 132 SMs x 16 a clock x 1.98 GHz (the
-SXM part's largest SM clock) = 4.18e12 a second.
+the full 700 W power limit) and, where it takes exponentials or square
+roots, those over the special-function units' rate: 132 SMs x 16 a clock
+x 1.98 GHz (the SXM part's largest SM clock) = 4.18e12 a second.
 
 Both count what the function needs on the inputs of the call that is
 timed, not what the kernel does. Bytes: the mass of every slot (it says
@@ -181,6 +181,51 @@ def shade_work(live: torch.Tensor, bg_color: torch.Tensor,
     n_live = int(live.sum())
     nbytes = 2 * _nbytes(bg_color) + live.numel() * (4 + 4 + 1 + (4 if thickness else 0))
     return nbytes, n_live * SHADE_OPS, n_live * SHADE_SFU
+
+
+def zbuffer_work(cells: torch.Tensor, h: int, w: int) -> tuple[int, int]:
+    """(bytes, operations) of the splat kernel's z-buffer: each point's
+    pixel x, pixel y and depth in, the [h, w] buffer out once; a point's
+    floors, conversions, offsets, on-buffer tests and index (10)."""
+    m = cells.shape[1]
+    return 12 * m + 4 * h * w, 10 * m
+
+
+# The splat kernel's dilation (csrc/splat_dilate.cu), counted from the
+# code: a pixel's Q (a division, a square, a max) and its start (a compare,
+# a subtract); every tap's r^2 - Q c and its test (a multiply, a subtract, a
+# compare); a tap inside an occupied source's disc, its offer (a square
+# root, on the special-function units, and a subtract) and the min.
+DILATE_PIXEL_OPS = 5
+DILATE_TAP_OPS = 3
+DILATE_DISC_OPS = 3
+
+
+def dilate_work(depth: torch.Tensor, cam, sphere_radius: float,
+                max_radius_px: int) -> tuple[int, int, int]:
+    """(bytes, operations, square roots) of the default mode's dilation of
+    an [h, w] depth buffer at splat radius R: the buffer in and out once;
+    every pixel's (2R+1)^2 - 1 taps; the offers, the taps whose source is
+    occupied (depth < BG_DEPTH) and inside the image with r^2 - Q c >= 0 in
+    float32, one square root each."""
+    from ..render.splat import BG_DEPTH
+    from ..render.splat_kernel import dilate_constants
+
+    h, w = depth.shape
+    R = max_radius_px
+    focal, _, r2, q_clamp, _ = dilate_constants(cam, sphere_radius, R)
+    ys, xs = torch.nonzero(depth < BG_DEPTH, as_tuple=True)
+    z = depth[ys, xs] / torch.tensor(focal, dtype=torch.float32, device=depth.device)
+    q = torch.clamp_min(z * z, q_clamp)
+    roots = 0
+    for dy in range(-R, R + 1):
+        for dx in range(-R, R + 1):
+            if dx or dy:
+                roots += int(((ys + dy >= 0) & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w)
+                              & (r2 - q * float(dx * dx + dy * dy) >= 0.0)).sum())
+    taps = h * w * ((2 * R + 1) ** 2 - 1)
+    ops = h * w * DILATE_PIXEL_OPS + taps * DILATE_TAP_OPS + roots * DILATE_DISC_OPS
+    return 2 * 4 * h * w, ops, roots
 
 
 def sim2d_work(state, config, n_inter: int = 0) -> tuple[int, int]:

@@ -1,5 +1,6 @@
-"""Kernels P, F, X, BL and SH against their plain PyTorch versions on a CUDA
-card, at the small scene of tests/test_fused.py, P and F also in
+"""Kernels P, F, X, BL, SH and the splat kernels against their plain
+PyTorch versions on a CUDA card, at the small scene of
+tests/test_fused.py, P and F also in
 fixed-point mode, the per-pass kernels A, B, D and E there too, the two
 sharded stages of P and F's shard mode (and the sharded step against the
 unsharded one), and the 2D kernels sim2d and migrate2d at dam_break_2d's
@@ -38,6 +39,7 @@ from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.ops.window import window_config
 from mpm_tpu_torch.parallel import domain
 from mpm_tpu_torch.utils import wide_k
+from torch_dilate_cases import DILATE_CASES, dilate_case, splat_pass
 from torch_shade_cases import SHADE_CASES, shade_case
 
 pytestmark = pytest.mark.requires_cuda
@@ -551,7 +553,8 @@ def kernel_counts():
     return kernel_launches()
 
 
-# ---- render kernels: X (extract), F's splat emission, BL (blur), SH (shade)
+# ---- render kernels: X (extract), F's splat emission, BL (blur), SH (shade),
+# the splat kernels (z-buffer, dilation)
 
 def _view_cam():
     from mpm_tpu_torch.render import Camera, default_view
@@ -715,6 +718,50 @@ def test_kernel_sh_matches_plain(dev, case):
           f"max abs diff {float((got - want).abs().max()):.3g}, {off_pct:.4f}% off by > 1 "
           "u8 level (bar 0.01)")
     assert off_pct <= 0.01
+
+@pytest.mark.parametrize("case", DILATE_CASES)
+def test_kernel_splat_matches_plain(dev, case):
+    """The splat kernels against the plain chain on the card, bit for bit:
+    the z-buffer and the key, then the dilation's depth, velocity, sx and
+    sy (tests/torch_dilate_cases.py: the benchmark cell's 1080p crop at R
+    6, a whole 1080p frame, 640x360 at R 6 and 8, the velocity and lit
+    modes, the tracking tie rule, an empty buffer, a near patch at the
+    clamp r^2 / R^2, a composite of 2 slabs, a particle array's deposit).
+    One launch a z-buffer or key, one a dilation."""
+    from mpm_tpu_torch.render import splat
+    from mpm_tpu_torch.render import splat_kernel as ksp
+    from mpm_tpu_torch.render.camera import view_to_screen, world_to_view
+
+    k = dilate_case(case, dev, full_size=True)
+    n0 = (ksp.zbuffer_launches, ksp.dilate_launches)
+    if case == "particles":
+        px, py, z = view_to_screen(world_to_view(k["pos"], k["view"]), k["cam"])
+        bufs = splat._point_deposit(px, py, z, k["vel"], k["cam"], z > k["cam"].near)
+        got = splat._dilate_kernel(bufs.depth, k["cam"], k["radius"], k["R"],
+                                   velocity=bufs.velocity, with_velocity=True, with_normals=True)
+        want = splat._dilate_spheres(bufs, k["cam"], k["radius"], k["R"], with_velocity=True,
+                                     with_normals=True)
+        zbuffers = 0
+    else:
+        d, key, got = splat_pass(k, splat.zbuffer_cells, splat.velocity_key,
+                                 splat.buffers_from_zbuffer)
+        wd, wkey, want = splat_pass(k, splat.zbuffer_cells_plain, splat.velocity_key_plain,
+                                    splat.buffers_from_zbuffer_plain)
+        assert torch.equal(d, wd)
+        assert (key is None) == (wkey is None) and (key is None or torch.equal(key, wkey))
+        zbuffers = k["slabs"] * (1 + int(k["velocity"]))
+    torch.cuda.synchronize()
+    assert (ksp.zbuffer_launches - n0[0], ksp.dilate_launches - n0[1]) == (zbuffers, 1)
+    for f in ("depth", "velocity", "sx", "sy"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert torch.equal(a, b), (f, int((a != b).sum()))
+    occupied = int((got.depth < 4000.0).sum())
+    assert occupied == 0 if case == "empty" else occupied > 0
+    print(f"splat kernels {case}: {tuple(got.depth.shape)}, R {k['R']}, {occupied} pixels "
+          "covered, bit-equal")
+
 
 def _x_state(dev, case, storage="float32"):
     """Bucket arrays (pos, vel, mass) of a kernel-X stress case, and the

@@ -39,6 +39,7 @@ from mpm_tpu_torch.render import (Camera, RenderConfig, SSFRParams, background_f
 from mpm_tpu_torch.render import background, camera, image, splat, ssfr
 from test_torch_render import MAX_OFF_SHARE
 from test_torch_render_kernels import to_port
+from torch_dilate_cases import tie_cells
 from torch_render_ref import CAMERA, xla_render
 
 torch.set_num_threads(2)
@@ -58,20 +59,6 @@ def _cells(rng, w, h, m=3000):
     return c
 
 
-def _tie_cells():
-    """Splat points whose discs offer equal depths at one pixel: a pair
-    along a row (pixel (20, 32)), a pair along a column (pixel (52, 60)),
-    four on a square's corners (pixel (80, 80)) and a flat 10 x 10 patch.
-    Columns: (x, y, velocity)."""
-    pts = [(30, 20, 1.0), (34, 20, 2.0), (60, 50, 3.0), (60, 54, 4.0),
-           (78, 78, 5.0), (82, 78, 6.0), (78, 82, 7.0), (82, 82, 8.0)]
-    rng = np.random.default_rng(5)
-    pts += [(x, y, float(rng.uniform(0, 60))) for y in range(100, 110) for x in range(10, 20)]
-    p = np.asarray(pts, np.float32)
-    return np.stack([p[:, 0] + 0.5, p[:, 1] + 0.5, np.full(len(p), 20.0, np.float32), p[:, 2],
-                     np.ones(len(p), np.float32)])
-
-
 def _zbuf(cells, cam):
     c = torch.tensor(cells)
     return splat.zbuffer_cells(c, cam), splat.velocity_key(c, cam)
@@ -83,7 +70,7 @@ def dilation_ref():
     JAX dilation of each without FMA (one subprocess)."""
     cam = Camera(**CAMERA)
     cases = {"rand": _zbuf(_cells(np.random.default_rng(0), cam.width, cam.height), cam),
-             "tie": _zbuf(_tie_cells(), cam)}
+             "tie": _zbuf(tie_cells(), cam)}
     t = splat.thickness_deposit(torch.tensor(_cells(np.random.default_rng(1), W, H)), Camera(W, H))
     inputs = {"R": np.int32(R), "t": t.numpy()}
     for name, (d, k) in cases.items():
