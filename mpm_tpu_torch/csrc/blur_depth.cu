@@ -38,8 +38,7 @@
 // --fmad=false: the result equals the plain version bit for bit. One launch
 // for both passes, the tile's R halo rows' X pass done again in each tile
 // and never written out, ran slower summed over the render crops and the
-// near-patch frames (PERF.md; utils/blur_variants keeps it as the variant
-// "one_launch").
+// near-patch frames (PERF.md).
 
 #include <climits>
 

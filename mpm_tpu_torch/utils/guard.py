@@ -92,13 +92,9 @@ class GuardedStep:
     (its clip keeps a NaN). In the port it does not (CHECKED), so the port
     checks vel as well.
 
-    Measured overhead on one NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's
-    [guard] phase): the 1M benchmark pool under the air window in calls of
-    10 substeps, snapshot_every=32 and check_every=8 (the CLI defaults),
-    against the bare window step in fenced windows of 32 calls, 3 of each in
-    turns: medians 0.2126 and 0.2109 s, guarded / bare 1.0080. A snapshot
-    clones the window state once per 32 calls; a check reduces pos and vel
-    once per 8.
+    Its cost: a snapshot clones the state once per `snapshot_every` calls
+    (the CLI: 32); a check reduces pos and vel once per `check_every` (the
+    CLI: 8).
 
     `failures`, `current_dt_scale` and `frames_lost` are diagnostics."""
 

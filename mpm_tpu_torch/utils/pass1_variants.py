@@ -32,8 +32,7 @@ from ..ops import bucketed
 from ..ops.cuda import build
 from ..ops.cuda.p2g_update import params_for
 from ..parallel import domain
-from .profile_shard import SLABS, config5_windows
-from .render_bench import settle
+from .profile_shard import SLABS, config5_windows, settle
 from .timing import cuda_time_ms
 
 BUILD = build.BUILD_DIR / "variants"

@@ -1,9 +1,10 @@
 """Where config 5's time goes: BASELINE.md's config 5 (16M particles on
-256^3, sharded) as chip_smoke.py runs it, the benchmark pool under the air
-window (headroom 4, chunks of 10 substeps) on 4 x-slabs (parallel/domain.py),
-beside the same window unsharded on the first card. The slabs are one a
-card on the first four cards where four are visible, else all four on the
-one card. chip_smoke takes its scene and windows from here.
+256^3, sharded), the benchmark pool under the air window (headroom 4,
+chunks of 10 substeps) on 4 x-slabs (parallel/domain.py), beside the same
+window unsharded on the first card. The slabs are one a card on the first
+four cards where four are visible, else all four on the one card. The card
+tests (tests/test_torch_cuda_paths.py) and utils/pass1_variants take its
+scene, windows and settle from here.
 
     python -m mpm_tpu_torch.utils.profile_shard
 
@@ -22,9 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..models.scenes import benchmark_scene
 from ..ops.window import YWindow
-from ..parallel.domain import SlabMesh
-from .render_bench import settle
-from ..parallel.domain import gather_bucket_state
+from ..parallel.domain import SlabMesh, gather_bucket_state
 from .timing import fenced_windows
 
 N_CONFIG5 = 16_000_000
@@ -42,6 +41,13 @@ def config5_windows(dev, n_target: int = N_CONFIG5, grid=GRID5, mesh: SlabMesh |
     win_s = YWindow(sc.config, mode="cuda", substeps=CHUNK, headroom=4,
                     mesh=mesh if mesh is not None else SlabMesh.on(dev, SLABS))
     return sc, win_u, win_s
+
+
+def settle(win: YWindow, state, fluid):
+    """150 substeps through the window engine."""
+    for _ in range(150 // CHUNK):
+        state = win.step(state, fluid)
+    return state
 
 
 def cards_mesh() -> SlabMesh:

@@ -135,17 +135,6 @@ def g2p_migrate_work(state, config, n_inter: int = 0, emit: bool = False) -> tup
     return nbytes, n * ops + (d * _occupied_cells(state) if config.fixed_point else 0)
 
 
-def extract_cells_work(state, splats: torch.Tensor, live_value: float) -> tuple[int, int]:
-    """(bytes, operations) of kernel X: mass, and pos of the occupied slots
-    in, the winning slot's vel for each cell that splats (splats[2] <
-    live_value), [5, C] out."""
-    n = _occupied(state)
-    live = int((splats[2] < live_value).sum())
-    nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos) + _slot_bytes(live, state.vel)
-              + _nbytes(splats))
-    return nbytes, n * SPLAT_OPS
-
-
 def blur_work(fsize_x: torch.Tensor, fsize_y: torch.Tensor) -> tuple[int, int, int]:
     """(bytes, operations, exponentials) of kernel BL on an [H, W] depth
     buffer, from the filter size of each live pixel in the X pass and the Y
@@ -248,33 +237,6 @@ def migrate_work(state, config) -> tuple[int, int]:
     nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos, state.vel, state.C, state.ids)
               + _nbytes(state.pos, state.vel, state.C, state.mass, state.ids))
     return nbytes, n * _migrate_ops(config.dim)
-
-
-def p2g1_work(state, config) -> tuple[int, int]:
-    """(bytes, operations) of kernel A: mass, and pos, vel and C of the
-    occupied slots in; grid mass and momentum out."""
-    n, c, d = _occupied(state), config.num_cells, config.dim
-    nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos, state.vel, state.C)
-              + 4 * c * (d + 1))
-    return nbytes, n * (_weight_ops(d) + _p2g1_ops(d))
-
-
-def p2g2_work(state, config) -> tuple[int, int]:
-    """(bytes, operations) of kernel B: mass, and pos and C of the occupied
-    slots, and the grid mass of their cells, in; the pass-2 momentum out."""
-    n, c, d = _occupied(state), config.num_cells, config.dim
-    nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos, state.C)
-              + 4 * _occupied_cells(state) + 4 * d * c)
-    return nbytes, n * (_weight_ops(d) + _coef_ops(d) + _p2g2_ops(d, config.legacy_strain))
-
-
-def g2p_work(state, config) -> tuple[int, int]:
-    """(bytes, operations) of kernel D: mass, and pos of the occupied slots
-    and the grid velocity of their cells, in; vel and C of every slot out."""
-    n, d = _occupied(state), config.dim
-    nbytes = (_nbytes(state.mass) + _slot_bytes(n, state.pos)
-              + 4 * d * _occupied_cells(state) + _nbytes(state.vel, state.C))
-    return nbytes, n * (_weight_ops(d) + 3**d * (2 * d * d + 2 * d) + d * d)
 
 
 def _slab_grid_cells(config) -> int:

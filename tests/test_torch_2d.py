@@ -258,7 +258,7 @@ def _partly_occupied_state(dim, k, c, n, vc_dtype=torch.float32):
 
 
 def test_roofline_of_the_2d_kernels():
-    """The bounds chip_smoke reports for the 2D kernels at the 2D benchmark
+    """utils/roofline's bounds of the 2D kernels at the 2D benchmark
     (100k particles in 262,144 slots, 256^2, K=4, float32): the mass of
     every slot, 32 B (sim2d) or 36 B (migrate2d, with ids) of each occupied
     slot, and every output (32 B and 40 B a slot); both bound by bytes."""

@@ -124,14 +124,13 @@ def test_convert_round_trip(storage):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the parallel package, the oracle,
-    the binned engine and the legacy renderer included), and chip_smoke.py,
-    leaves jax and mpm_tpu out of sys.modules."""
+    the binned engine and the legacy renderer included) leaves jax and
+    mpm_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mpm_tpu_torch\n"
         "for m in pkgutil.walk_packages(mpm_tpu_torch.__path__, 'mpm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpm_tpu')]\n"
         "assert not bad, bad\n"
         "assert {'mpm_tpu_torch.parallel.domain', 'mpm_tpu_torch.parallel.render',\n"

@@ -38,22 +38,17 @@ from mpm_tpu_torch.ops.interact import Interaction
 from mpm_tpu_torch.ops.step import make_step
 from mpm_tpu_torch.ops.window import window_config
 from mpm_tpu_torch.parallel import domain
-from mpm_tpu_torch.utils import wide_k
+from torch_card_cases import (assert_splats_equal, assert_states_close,  # noqa: F401 (dev)
+                              assert_states_equal, dev)
 from torch_dilate_cases import DILATE_CASES, dilate_case, splat_pass
 from torch_shade_cases import SHADE_CASES, shade_case
+from torch_wide_cases import FIELDS, dense_scene
 
 pytestmark = pytest.mark.requires_cuda
 
 GOLDEN_3D = os.path.join(os.path.dirname(__file__), "golden",
                          "fluid_3d_small_bucketed.npz")
 GOLDEN_2D = os.path.join(os.path.dirname(__file__), "golden", "dam_break_2d_oracle.npz")
-
-
-@pytest.fixture
-def dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _scene(dev, storage="float32", grid_res=None, spacing=0.8, **kw):
@@ -69,19 +64,6 @@ def _warm(state, config, fluid, n=2):
     for _ in range(n):
         state = bucketed.substep(state, config, fluid)
     return state
-
-
-def _assert_states_close(a, b, bf16):
-    np.testing.assert_array_equal(a.ids.cpu().numpy(), b.ids.cpu().numpy())
-    np.testing.assert_allclose(a.pos.cpu().numpy(), b.pos.cpu().numpy(), atol=1e-6)
-    for x, y in ((a.vel, b.vel), (a.C, b.C)):
-        x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
-        if bf16:
-            np.testing.assert_allclose(x, y, rtol=0.01, atol=1e-4)
-        else:
-            np.testing.assert_allclose(x, y, atol=1e-5)
-    for name in ("lost", "cfl_clamped", "deferred", "ceiling"):
-        assert int(getattr(a, name)) == int(getattr(b, name)), name
 
 
 P_CASES = {
@@ -124,7 +106,7 @@ def test_kernel_f_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert kf.launches == n0 + 1
     want = kf.g2p_migrate_plain(state, grid, config, fluid, inter)
-    _assert_states_close(got, want, storage == "bfloat16")
+    assert_states_close(got, want, storage == "bfloat16")
 
 
 def test_ceiling_band_matches_plain(dev):
@@ -145,14 +127,14 @@ def test_ceiling_band_matches_plain(dev):
     got = make_step(wcfg, mode="cuda", substeps=3)(b, fluid)
     want = make_step(wcfg, mode="bucketed", substeps=3)(b, fluid)
     assert int(got.ceiling) > 0
-    _assert_states_close(got, want, False)
+    assert_states_close(got, want, False)
 
 
 def test_substeps_match_plain(dev):
     config, fluid, state = _scene(dev, "bfloat16")
     got = make_step(config, mode="cuda", substeps=6)(state, fluid)
     want = make_step(config, mode="bucketed", substeps=6)(state, fluid)
-    _assert_states_close(got, want, True)
+    assert_states_close(got, want, True)
     assert int(got.lost) == 0
 
 
@@ -206,7 +188,7 @@ def test_kernel_p_and_f_fixed_point_match_plain(dev):
     out = kf.g2p_migrate(state, want, config, fluid)
     torch.cuda.synchronize()
     assert kf.launches == n0 + 1
-    _assert_states_close(out, kf.g2p_migrate_plain(state, want, config, fluid), False)
+    assert_states_close(out, kf.g2p_migrate_plain(state, want, config, fluid), False)
 
 
 def test_fixed_point_permutation_bit_exact(dev):
@@ -281,7 +263,7 @@ def test_per_pass_substep_and_env(dev, monkeypatch):
     for _ in range(3):
         want = planes.substep_plain(want, config, fluid)
     assert (kp.launches, kf.launches) == n_pf and ke.launches == n_e + 3
-    _assert_states_close(got, want, False)
+    assert_states_close(got, want, False)
     data = np.load(GOLDEN_3D)
     step = make_step(config, mode="cuda", substeps=1)
     for i in range(1, 31):
@@ -316,7 +298,7 @@ def test_sim2d_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert k2d.sim2d_launches == n0 + 1
     want = k2d.sim2d_plain(state, config, fluid, inter)
-    _assert_states_close(got, want, False)
+    assert_states_close(got, want, False)
     assert torch.equal(got.mass, want.mass) and torch.equal(got.ids, want.ids)
 
 
@@ -330,7 +312,7 @@ def test_migrate2d_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert k2d.migrate2d_launches == n0 + 1
     want = k2d.migrate2d_plain(state, config)
-    _assert_states_close(got, want, False)
+    assert_states_close(got, want, False)
     assert torch.equal(got.mass, want.mass)
 
 
@@ -348,7 +330,7 @@ def test_crush_2d_matches_plain(dev):
     assert int(occ.sum()) == 1024 and int(occ.sum(dim=0).max()) <= config.bin_capacity
     got = k2d.substep2d(state, config, fluid)
     want = make_step(config, mode="bucketed", substeps=1)(state, fluid)
-    _assert_states_close(got, want, False)
+    assert_states_close(got, want, False)
 
 
 def test_golden_anchor_2d(dev):
@@ -373,16 +355,6 @@ def test_2d_kernels_refuse_fixed_point(dev):
         k2d.sim2d(state, config.replace(fixed_point=True), fluid)
 
 
-def _assert_bit_equal(got, want):
-    for f in ("pos", "vel", "C", "mass", "ids"):
-        a, b = getattr(got, f), getattr(want, f)
-        assert a.dtype == b.dtype and torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
-                                                  else a, b.view(torch.int16)
-                                                  if b.dtype == torch.bfloat16 else b), f
-    for name in ("lost", "cfl_clamped", "deferred", "ceiling"):
-        assert int(getattr(got, name)) == int(getattr(want, name)), name
-
-
 @pytest.mark.parametrize("case", list(CASES_2D))
 def test_2d_kernels_bf16_bit_equal(dev, case):
     """bf16 vel/C in the 2D pair (kernels2d.py:76-77, 476-477): sim2d and
@@ -395,11 +367,11 @@ def test_2d_kernels_bf16_bit_equal(dev, case):
     n0 = (k2d.sim2d_launches, k2d.migrate2d_launches)
     got = k2d.sim2d(state, config, fluid, inter)
     want = k2d.sim2d_plain(state, config, fluid, inter)
-    _assert_bit_equal(got, want)
-    _assert_bit_equal(k2d.migrate2d(want, config), k2d.migrate2d_plain(want, config))
+    assert_states_equal(got, want)
+    assert_states_equal(k2d.migrate2d(want, config), k2d.migrate2d_plain(want, config))
     torch.cuda.synchronize()
     assert (k2d.sim2d_launches, k2d.migrate2d_launches) == (n0[0] + 1, n0[1] + 1)
-    _assert_bit_equal(make_step(config, mode="cuda", substeps=5)(state, fluid, inter),
+    assert_states_equal(make_step(config, mode="cuda", substeps=5)(state, fluid, inter),
                       make_step(config, mode="bucketed", substeps=5)(state, fluid, inter))
 
 
@@ -423,12 +395,12 @@ def test_kernels_take_twelve_spheres(dev, storage):
     state = _warm(state, config, fluid)
     grid = kp.p2g_update_plain(state, config, fluid)
     inter = _spheres(3)
-    _assert_bit_equal(kf.g2p_migrate(state, grid, config, fluid, inter),
+    assert_states_equal(kf.g2p_migrate(state, grid, config, fluid, inter),
                       kf.g2p_migrate_plain(state, grid, config, fluid, inter))
     config2, fluid2, state2 = _scene2d(dev, storage_dtype=storage)
     state2 = _warm(state2, config2, fluid2, 4)
     inter2 = _spheres(2)
-    _assert_bit_equal(k2d.sim2d(state2, config2, fluid2, inter2),
+    assert_states_equal(k2d.sim2d(state2, config2, fluid2, inter2),
                       k2d.sim2d_plain(state2, config2, fluid2, inter2))
 
 
@@ -442,7 +414,7 @@ def test_route_runs_the_plain_engine(dev):
     want = make_step(config, mode="bucketed", substeps=3)(state, fluid)
     torch.cuda.synchronize()
     assert kernel_counts() == n0
-    _assert_bit_equal(got, want)
+    assert_states_equal(got, want)
     assert int(got.lost) == 0
 
 
@@ -470,10 +442,10 @@ def test_route_k_above_32_runs_the_kernels(dev, case):
     torch.cuda.synchronize()
     n1 = kernel_counts()
     assert all(n1[k] > n0[k] for k in (("sim2d", "migrate2d") if kind == "2d" else ("p2g_update", "g2p_migrate")))
-    _assert_bit_equal(got, want)
+    assert_states_equal(got, want)
 
 
-# the dense scenes of utils/wide_k.py (more than 64 particles in the
+# the dense scenes of tests/torch_wide_cases.py (more than 64 particles in the
 # fullest cell; K = 200: 125 to 216 a fluid cell): (dim, K, grid)
 DENSE = {"k72_3d": (3, 72, 16), "k128_3d": (3, 128, 16), "k200_3d": (3, 200, 16),
          "k72_2d": (2, 72, 32)}
@@ -481,7 +453,7 @@ DENSE = {"k72_3d": (3, 72, 16), "k128_3d": (3, 128, 16), "k200_3d": (3, 200, 16)
 
 def _dense(dev, case):
     dim, k, grid = DENSE[case]
-    config, fluid, state = wide_k.dense_scene(dim, k, dev, grid=grid, warm=0)
+    config, fluid, state = dense_scene(dim, k, dev, grid=grid, warm=0)
     assert int((state.mass > 0).sum(0).max()) > 64
     return config, fluid, state
 
@@ -499,7 +471,7 @@ def test_route_k_above_64_runs_the_chunked_kernels(dev, case):
     n1 = kernel_counts()
     want = make_step(config, mode="bucketed", substeps=3)(state, fluid)
     assert all(n1[k] == n0[k] + 3 for k in names), (n0, n1)
-    _assert_bit_equal(got, want)
+    assert_states_equal(got, want)
 
 
 def test_per_pass_kernels_at_k72(dev, monkeypatch):
@@ -530,7 +502,7 @@ def test_per_pass_kernels_at_k72(dev, monkeypatch):
     for _ in range(3):
         want = planes.substep_plain(want, config, fluid)
     assert ke.launches == n_e + 3
-    _assert_states_close(got, want, False)
+    assert_states_close(got, want, False)
 
 
 def test_route_beyond_the_kernels_raises(dev):
@@ -562,16 +534,6 @@ def _view_cam():
     return default_view((16, 16, 16)), Camera(width=160, height=96)
 
 
-def _assert_splats_equal(got, want):
-    """Kernel X's bar: rows 2 (depth) and 4 (count) equal, rows 0, 1 and 3
-    within rtol 1e-6 and atol 1e-5 (tests/test_render.py:370). Built
-    without fused multiply-adds, the kernel rounds as the plain version
-    does, so the rows are expected equal."""
-    assert torch.equal(got[2], want[2]) and torch.equal(got[4], want[4])
-    for r in (0, 1, 3):
-        torch.testing.assert_close(got[r], want[r], rtol=1e-6, atol=1e-5)
-
-
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 def test_kernel_x_matches_plain(dev, storage):
     from mpm_tpu_torch.render import extract_kernel as kx
@@ -585,7 +547,7 @@ def test_kernel_x_matches_plain(dev, storage):
     assert kx.launches == n0 + 1
     want = kx.extract_cell_splats_plain(state, view, cam)
     assert int((want[2] < kx.CELL_BG).sum()) > 0
-    _assert_splats_equal(got, want)
+    assert_splats_equal(got, want)
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
@@ -603,8 +565,8 @@ def test_kernel_f_emission_matches_plain(dev, storage):
     assert kf.emit_launches == n0 + 1
     grid = kp.p2g_update(state, config, fluid)
     want = kf.g2p_migrate_plain(state, grid, config, fluid)
-    _assert_states_close(got, want, storage == "bfloat16")
-    _assert_splats_equal(splats, kx.cell_splats_plain(got.pos, got.vel, got.mass, rs))
+    assert_states_close(got, want, storage == "bfloat16")
+    assert_splats_equal(splats, kx.cell_splats_plain(got.pos, got.vel, got.mass, rs))
     torch.testing.assert_close(splats, kx.extract_cell_splats(got, view, cam), rtol=0, atol=0)
 
 
@@ -866,9 +828,7 @@ def _check_shard_kernels(dev, config, fluid, state):
         # exchanged here, which is the same input for both versions
         out = kf.g2p_migrate(p, Grid(mom=gv, mass=m), cfg, fluid, slab=slab)
         want = kf.g2p_migrate_plain(p, Grid(mom=gv, mass=m), cfg, fluid, slab=slab)
-        for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred",
-                  "ceiling"):
-            assert torch.equal(getattr(out, f), getattr(want, f)), f
+        assert_states_equal(out, want)
     torch.cuda.synchronize()
     assert (ks.p2g1_launches, ks.p2g2u_launches, kf.shard_launches) == tuple(x + 4 for x in n0)
 
@@ -885,8 +845,7 @@ def test_sharded_step_equals_unsharded_kernels(dev, n_slabs):
     out = domain.make_sharded_bucket_step(config, mesh, substeps=3)(
         domain.shard_bucket_state(state, config, mesh), fluid)
     got = domain.gather_bucket_state(out)
-    for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling"):
-        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert_states_equal(got, want)
     assert int(got.deferred) > 0
 
 
@@ -900,20 +859,11 @@ def test_sharded_fixed_step_equals_unsharded_kernels(dev):
     out = domain.make_sharded_bucket_step(config, mesh, substeps=3)(
         domain.shard_bucket_state(state, config, mesh), fluid)
     got = domain.gather_bucket_state(out)
-    for f in ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling"):
-        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert_states_equal(got, want)
     assert int(got.deferred) > 0
 
 
 # ---- the migration's choose / move split and pass 2's staged tiles -------
-
-FIELDS = ("pos", "vel", "C", "mass", "ids", "lost", "cfl_clamped", "deferred", "ceiling")
-
-
-def _assert_bit_equal(got, want):
-    for f in FIELDS:
-        assert torch.equal(getattr(got, f), getattr(want, f)), f
-
 
 def _stress_grid(config, fluid, dev, seed):
     """A random grid velocity that moves particles up to 1.5 cells a
@@ -927,7 +877,7 @@ def _stress_grid(config, fluid, dev, seed):
 
 
 # case: (lattice spacing, config fields); spacing 0.5 fills every cell at K=8;
-# "dense": utils/wide_k's dense 16^3 scene at K above 64 (64 to 125
+# "dense": tests/torch_wide_cases' dense 16^3 scene at K above 64 (64 to 125
 # particles a fluid cell), each cell's slots in two or more 64-slot chunks
 MIGRATION_CASES = {
     "f32": (0.5, dict(bin_capacity=8)),
@@ -968,7 +918,7 @@ def test_kernel_f_migration_stress_matches_plain(dev, case):
     the plain version does."""
     spacing, kw = MIGRATION_CASES[case]
     if spacing == "dense":
-        config, fluid, state = wide_k.dense_scene(3, kw["bin_capacity"], dev, grid=16)
+        config, fluid, state = dense_scene(3, kw["bin_capacity"], dev, grid=16)
     else:
         sc = fluid_3d(grid_res=16, box=8.0, spacing=spacing, device=dev)
         config, fluid, st = sc.config.replace(**kw), sc.fluid, sc.state
@@ -987,7 +937,7 @@ def test_kernel_f_migration_stress_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert kf.launches == n0 + 1
     want = kf.g2p_migrate_plain(state, grid, config, fluid)
-    _assert_bit_equal(got, want)
+    assert_states_equal(got, want)
     assert int(want.deferred) > 0
     if case in ("bf16_k4", "dense_k72"):
         assert int(want.lost) > 0
@@ -1040,7 +990,7 @@ def test_kernel_f_shard_mode_stress_matches_plain(dev):
         grid = _stress_grid(gcfg, fluid, dev, seed=7 + a)
         got = kf.g2p_migrate(p, grid, cfg, fluid, slab=slab)
         want = kf.g2p_migrate_plain(p, grid, cfg, fluid, slab=slab)
-        _assert_bit_equal(got, want)
+        assert_states_equal(got, want)
         assert int(want.deferred) > 0
 
 
@@ -1057,7 +1007,7 @@ def test_migrate2d_stress_matches_plain(dev):
     pre = state.replace(pos=pos.contiguous())
     got = k2d.migrate2d(pre, config)
     want = k2d.migrate2d_plain(pre, config)
-    _assert_bit_equal(got, want)
+    assert_states_equal(got, want)
     assert int(want.deferred) > 0
 
 
@@ -1221,7 +1171,7 @@ def test_sim2d_pass1_stress_matches_plain(dev, cells):
     got = k2d.sim2d(state, config, fluid, ())
     torch.cuda.synchronize()
     assert k2d.sim2d_launches == n0 + 1
-    _assert_bit_equal(got, k2d.sim2d_plain(state, config, fluid, ()))
+    assert_states_equal(got, k2d.sim2d_plain(state, config, fluid, ()))
 
 
 # ---- the oracle, the binned engine, the sort-based slabs, legacy_quad ------
@@ -1245,10 +1195,11 @@ def test_oracle_golden_replay_on_the_card(dev):
     assert torch.equal(runs[0].pos, runs[1].pos) and torch.equal(runs[0].vel, runs[1].vel)
 
 
-@pytest.mark.parametrize("scene", ["dam_break_2d", "fluid_3d_fixed_point"])
+@pytest.mark.parametrize("scene", ["dam_break_2d", "fluid_3d", "fluid_3d_fixed_point"])
 def test_binned_matches_oracle_on_the_card(dev, scene):
-    """One substep: ids equal, vel/C within 1e-5, pos within max(1e-6, one
-    float32 ulp) (the oracle adds a cell's run in float32, binned in
+    """One substep of each scene at its full size (fluid_3d: 157,464
+    particles on 64^3): ids equal, vel/C within 1e-5, pos within max(1e-6,
+    one float32 ulp) (the oracle adds a cell's run in float32, binned in
     float64); fixed point bit-equal across two runs."""
     from mpm_tpu_torch.models.scenes import get_scene
 
