@@ -263,14 +263,19 @@ def _print_counters(state) -> None:
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the port's CUDA kernels in this process."""
-    from .ops.cuda import g2p_migrate, migrate_planes, p2g_shard, p2g_update, planes, substep2d
+    """Launch counts of the port's CUDA kernels in this process, and
+    `halo_copy`, the slab exchange's segments run as copy_ where a pair of
+    cards has no peer access."""
+    from .ops.cuda import (g2p_migrate, halo_fill, migrate_planes, p2g_shard, p2g_update,
+                           planes, substep2d)
     from .render import blur_kernel, extract_kernel, shade_kernel, splat_kernel
 
     return {"p2g_update": p2g_update.launches, "g2p_migrate": g2p_migrate.launches,
             "g2p_migrate_emit": g2p_migrate.emit_launches,
             "p2g1_shard": p2g_shard.p2g1_launches, "p2g2u_shard": p2g_shard.p2g2u_launches,
             "g2p_migrate_shard": g2p_migrate.shard_launches,
+            "halo_fill": halo_fill.fill_launches, "halo_full": halo_fill.full_launches,
+            "halo_copy": halo_fill.copies,
             "sim2d": substep2d.sim2d_launches, "migrate2d": substep2d.migrate2d_launches,
             "extract_cells": extract_kernel.launches, "blur_depth": blur_kernel.launches,
             "ssfr_shade": shade_kernel.launches,
@@ -282,11 +287,13 @@ def kernel_launches() -> dict:
 
 def reset_kernel_launches() -> None:
     """Sets every count kernel_launches reads to 0."""
-    from .ops.cuda import g2p_migrate, migrate_planes, p2g_shard, p2g_update, planes, substep2d
+    from .ops.cuda import (g2p_migrate, halo_fill, migrate_planes, p2g_shard, p2g_update,
+                           planes, substep2d)
     from .render import blur_kernel, extract_kernel, shade_kernel, splat_kernel
 
     p2g_update.launches = g2p_migrate.launches = g2p_migrate.emit_launches = 0
     p2g_shard.p2g1_launches = p2g_shard.p2g2u_launches = g2p_migrate.shard_launches = 0
+    halo_fill.fill_launches = halo_fill.full_launches = halo_fill.copies = 0
     substep2d.sim2d_launches = substep2d.migrate2d_launches = 0
     extract_kernel.launches = blur_kernel.launches = shade_kernel.launches = 0
     splat_kernel.zbuffer_launches = splat_kernel.dilate_launches = 0

@@ -21,25 +21,33 @@ substep, on every slab:
   4. stage 2 of kernel P: force and grid update from the exact mass;
   5. grid-velocity exchange, as 3;
   6. kernel F in shard mode (G2P, tail, migration; with the render's splat
-     emission on request), then the slab's own planes are kept.
+     emission on request) into a new padded slab, whose own planes the
+     chunk returns after its last substep.
 
-The exchanges are slicing and torch.cat of neighbour planes copied with
-`.to(device)` (spans `mpm.shard.halo`, `mpm.shard.grid`; the bytes they
-copy add to `halo_bytes`). Between two cards PyTorch runs such a copy on
-the source card's current stream: that stream first waits on an event
-recorded on the destination card's current stream, and the destination's
-stream then waits on an event recorded after the copy, so each exchange is
-a two-way barrier between neighbouring cards' streams and needs no
-synchronise of the host. With peer access between the cards (on a
-four-H100 NVLink host, every pair) a strided slice (each state-halo field,
-the grid velocity's planes: 36 of a substep's 42 copies on 4 slabs) is
-copied by a copy kernel on the source card that writes the neighbour's
-memory, and the contiguous grid-mass planes by a peer cudaMemcpyAsync.
-Config 5 on four such cards runs bit-equal to one card's unsharded window
-over 150 substeps (utils/profile_shard). On one card stream order alone
-orders the copies. Counters count the slab's own planes only (the kernels'
-gate) and each slab's deltas are summed once per frame (span
-`mpm.shard.counters`), as the JAX package's psum.
+The exchanges fill planes in place; nothing rebuilds a padded slab or a
+grid (spans `mpm.shard.halo`, `mpm.shard.grid`; the bytes they move
+between slabs add to `halo_bytes`). A chunk's first substep pads its input
+slabs into new buffers (the full exchange: own planes and halo, a launch a
+slab), so that a chunk never writes its input state. Kernel F's output is
+a padded slab, and its own planes are the next substep's padded interior:
+later substeps overwrite only its halo planes, and every grid exchange only
+the end planes of the stage's fresh grid (in-place fills). Each exchange is
+one launch of kernel HF (ops/cuda/halo_fill.py, whose counters tell fills
+from full exchanges) a slab on the slab's card, which reads the
+neighbours' planes by device pointer: on the same card, or on a peer card
+over NVLink. Across cards a slab that a neighbour reads records an event
+after the work that made the planes, the reader's stream waits on it
+before its fill and records a second event after it, and the producer's
+stream waits on that one, so that neither its next kernels nor the caching
+allocator's reuse of a freed block overwrite what is read before it is
+read: the two-way barrier of a cross-card copy, once a slab an exchange.
+Slabs of one card share its stream, whose order alone orders them. A pair
+of cards without peer access fills by copy_ into the same planes; the CPU
+and mode "bucketed" take the plain version (a copy_ or fill_ of each
+slice). Config 5 on four cards runs bit-equal to one card's unsharded
+window over 150 substeps (utils/profile_shard). Counters count the slab's
+own planes only (the kernels' gate) and each slab's deltas are summed once
+per frame (span `mpm.shard.counters`), as the JAX package's psum.
 
 The sort-based sharded step of the binned engine (domain.py:49-514) comes
 after it: `ShardConfig`, `shard_scene`, `make_sharded_step`, `gather_live`
@@ -49,6 +57,7 @@ on linear per-slab states (the section at the end).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import torch
@@ -57,14 +66,17 @@ from ..core.params import FluidParams, SimConfig
 from ..core.state import Grid, SimState
 from ..ops import binned, reference, transfer
 from ..ops.bucketed import BucketState, Slab, from_simstate, slab_config
-from ..ops.cuda import p2g_shard
+from ..ops.cuda import halo_fill, p2g_shard
 from ..ops.cuda.extract_cells import cell_splats_plain
 from ..ops.cuda.g2p_migrate import g2p_migrate, g2p_migrate_plain
+from ..ops.cuda.halo_fill import Seg
 from ..ops.grid import update_grid
 from ..ops.interact import Interaction
 from ..utils.timing import span, spanned
 
 COUNTERS = ("lost", "cfl_clamped", "deferred", "ceiling")
+FIELDS = ("pos", "vel", "C", "mass", "ids")
+DEAD = {"pos": 0, "vel": 0, "C": 0, "mass": 0, "ids": -1}  # a dead plane's values
 HALO = 2  # state halo planes a side (the migration's reach plus one)
 
 halo_bytes = 0  # bytes copied between slabs so far: state halo and grid exchanges
@@ -139,7 +151,7 @@ def shard_bucket_state(bstate: BucketState, config: SimConfig, mesh: SlabMesh) -
     slabs = []
     for a, dev in enumerate(mesh.devices):
         arrays = {f: _planes(getattr(bstate, f), pc, a * loc, (a + 1) * loc).to(dev).contiguous()
-                  for f in ("pos", "vel", "C", "mass", "ids")}
+                  for f in FIELDS}
         counters = {f: getattr(bstate, f).to(dev).clone() for f in COUNTERS}
         slabs.append(BucketState(**arrays, **counters))
     return ShardedState(slabs)
@@ -150,14 +162,9 @@ def gather_bucket_state(state: ShardedState) -> BucketState:
     BucketState on the first slab's device, slot for slot."""
     dev = state.slabs[0].device
     arrays = {f: torch.cat([getattr(s, f).to(dev) for s in state.slabs], dim=-1)
-              for f in ("pos", "vel", "C", "mass", "ids")}
+              for f in FIELDS}
     counters = {f: getattr(state, f).to(dev) for f in COUNTERS}
     return BucketState(**arrays, **counters)
-
-
-def _dead_planes(like: torch.Tensor, pc: int, fill) -> torch.Tensor:
-    shape = (*like.shape[:-1], HALO * pc)
-    return torch.full(shape, fill, dtype=like.dtype, device=like.device)
 
 
 def _plane_bytes(x: torch.Tensor, planes: int, pc: int) -> int:
@@ -165,46 +172,126 @@ def _plane_bytes(x: torch.Tensor, planes: int, pc: int) -> int:
     return x.numel() // x.shape[-1] * planes * pc * x.element_size()
 
 
-@spanned("mpm.shard.halo")
-def _exchange_state_halo(slabs: list[BucketState], pc: int) -> list[BucketState]:
-    """The padded slabs: [left neighbour's last 2 planes | own | right
-    neighbour's first 2 planes]; dead planes past the global ends."""
-    global halo_bytes
-    n = len(slabs)
-    out = []
-    for a, s in enumerate(slabs):
-        def pad(field, fill):
-            x = getattr(s, field)
-            lo = (getattr(slabs[a - 1], field)[..., -HALO * pc:].to(x.device) if a > 0
-                  else _dead_planes(x, pc, fill))
-            hi = (getattr(slabs[a + 1], field)[..., :HALO * pc].to(x.device) if a < n - 1
-                  else _dead_planes(x, pc, fill))
-            return torch.cat([lo, x, hi], dim=-1)
+def _state_segs(n: int, loc: int, full: bool) -> list[list[Seg]]:
+    """Slab by slab, the segments of a state exchange over a table of the n
+    padded slabs' fields (slab-major, FIELDS order): each field's HALO
+    planes a side from the neighbour's nearest own planes, dead planes past
+    the global ends. With `full`, the n unpadded slabs' fields follow in
+    the table, and the own planes come from there too; else the own planes
+    are in place and the neighbours' sit at HALO in their padded slabs."""
+    nf = len(FIELDS)
+    base = 0 if full else HALO  # the first own plane of a source
 
-        out.append(s.replace(pos=pad("pos", 0.0), vel=pad("vel", 0.0), C=pad("C", 0.0),
-                             mass=pad("mass", 0.0), ids=pad("ids", -1)))
-    # each of the n - 1 boundaries sends HALO planes of every field each way
-    halo_bytes += 2 * (n - 1) * sum(_plane_bytes(getattr(slabs[0], f), HALO, pc)
-                                    for f in ("pos", "vel", "C", "mass", "ids"))
+    def src(b: int, i: int) -> int:
+        return (n + b if full else b) * nf + i
+
+    out = []
+    for a in range(n):
+        segs = []
+        for i, f in enumerate(FIELDS):
+            dst = a * nf + i
+            if full:
+                segs.append(Seg(dst, HALO, src(a, i), 0, loc))
+            segs.append(Seg(dst, 0, src(a - 1, i), base + loc - HALO, HALO) if a > 0
+                        else Seg(dst, 0, None, 0, HALO, DEAD[f]))
+            segs.append(Seg(dst, HALO + loc, src(a + 1, i), base, HALO) if a < n - 1
+                        else Seg(dst, HALO + loc, None, 0, HALO, DEAD[f]))
+        out.append(segs)
     return out
+
+
+def _grid_segs(n: int, loc: int) -> list[list[Seg]]:
+    """Slab by slab, the segments of a grid exchange over the n slabs'
+    grids ([..., (loc+6) * pc]: grid plane j is global plane x0 - 1 + j,
+    complete on [2, loc+3]): planes 0-1 from the left neighbour's loc,
+    loc+1, planes loc+4, loc+5 from the right one's 4, 5, zero past the
+    global ends."""
+    return [[Seg(a, 0, a - 1, loc, 2) if a > 0 else Seg(a, 0, None, 0, 2),
+             Seg(a, loc + 4, a + 1, 4, 2) if a < n - 1 else Seg(a, loc + 4, None, 0, 2)]
+            for a in range(n)]
+
+
+class _Exchange:
+    """The slab exchanges of n slabs of `loc` planes: the segments of each
+    kind ("full", "state", "grid"), run by kernel HF on CUDA tensors (its
+    plans kept by the table's layout) or by its plain version on the CPU
+    and with `plain`."""
+
+    def __init__(self, n: int, loc: int, pc: int, plain: bool):
+        self.n, self.loc, self.pc, self.plain = n, loc, pc, plain
+        self.segs = {"full": _state_segs(n, loc, True), "state": _state_segs(n, loc, False),
+                     "grid": _grid_segs(n, loc)}
+        self._plans: dict = {}
+
+    def run(self, kind: str, table: list[torch.Tensor]) -> None:
+        if self.plain or table[0].device.type != "cuda":
+            halo_fill.fill_plain(table, self.segs[kind], self.pc)
+            return
+        # a plan holds its table's row counts, byte strides and cards
+        key = (kind, tuple((t.shape, t.stride(), t.dtype, t.get_device()) for t in table))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = halo_fill.Plan(table, self.segs[kind], self.pc,
+                                                     full=kind == "full")
+        plan.run(table, self.pc)
+
+
+@functools.cache
+def _exchange(n: int, loc: int, pc: int, plain: bool) -> _Exchange:
+    return _Exchange(n, loc, pc, plain)
+
+
+def _state_halo_bytes(slab: BucketState, n: int, pc: int) -> int:
+    """Bytes a state exchange moves between slabs: each of the n - 1
+    boundaries sends HALO planes of every field each way."""
+    return 2 * (n - 1) * sum(_plane_bytes(getattr(slab, f), HALO, pc) for f in FIELDS)
+
+
+@spanned("mpm.shard.halo")
+def _exchange_state_halo(slabs: list[BucketState], pc: int,
+                         plain: bool = False) -> list[BucketState]:
+    """The padded slabs, each in a new buffer: [left neighbour's last 2
+    planes | own | right neighbour's first 2 planes]; dead planes past the
+    global ends (the full exchange, a launch a slab; with `plain`, or on
+    the CPU, its plain version). The counters are the slabs'."""
+    global halo_bytes
+    n, loc = len(slabs), slabs[0].mass.shape[-1] // pc
+    ex = _exchange(n, loc, pc, plain)
+    srcs = [getattr(s, f) for s in slabs for f in FIELDS]
+    bufs = [torch.empty((*x.shape[:-1], (loc + 2 * HALO) * pc), dtype=x.dtype, device=x.device)
+            for x in srcs]
+    ex.run("full", bufs + srcs)
+    halo_bytes += _state_halo_bytes(slabs[0], n, pc)
+    nf = len(FIELDS)
+    return [s.replace(**dict(zip(FIELDS, bufs[a * nf:(a + 1) * nf]))) for a, s in enumerate(slabs)]
+
+
+@spanned("mpm.shard.halo")
+def _fill_state_halo(padded: list[BucketState], pc: int,
+                     plain: bool = False) -> list[BucketState]:
+    """The padded slabs' halo planes, in place, from the neighbours' own
+    planes (dead past the global ends): a launch a slab, or the plain
+    version as _exchange_state_halo's."""
+    global halo_bytes
+    n, loc = len(padded), padded[0].mass.shape[-1] // pc - 2 * HALO
+    _exchange(n, loc, pc, plain).run("state", [getattr(p, f) for p in padded for f in FIELDS])
+    halo_bytes += _state_halo_bytes(padded[0], len(padded), pc)
+    return padded
 
 
 @spanned("mpm.shard.grid")
-def _exchange_grid(gs: list[torch.Tensor], loc: int, pc: int) -> list[torch.Tensor]:
-    """Replace the incomplete end planes of each slab's grid ([..., (loc+6)
+def _exchange_grid(gs: list[torch.Tensor], loc: int, pc: int,
+                   plain: bool = False) -> list[torch.Tensor]:
+    """In place, the incomplete end planes of each slab's grid ([..., (loc+6)
     * pc]: grid plane j is global plane x0 - 1 + j, complete on [2, loc+3])
-    with the neighbours' complete ones, zero past the global ends."""
+    replaced by the neighbours' complete ones, zero past the global ends:
+    a launch a slab, or the plain version as _exchange_state_halo's.
+    Returns `gs`."""
     global halo_bytes
     n = len(gs)
+    _exchange(n, loc, pc, plain).run("grid", gs)
     halo_bytes += 2 * (n - 1) * _plane_bytes(gs[0], 2, pc)
-    out = []
-    for a, g in enumerate(gs):
-        lo = (_planes(gs[a - 1], pc, loc, loc + 2).to(g.device) if a > 0
-              else torch.zeros_like(_planes(g, pc, 0, 2)))
-        hi = (_planes(gs[a + 1], pc, 4, 6).to(g.device) if a < n - 1
-              else torch.zeros_like(_planes(g, pc, 0, 2)))
-        out.append(torch.cat([lo, _planes(g, pc, 2, loc + 4), hi], dim=-1))
-    return out
+    return gs
 
 
 def _f_kernels(padded, grid, config, fp, inter, slab, rscals):
@@ -248,19 +335,23 @@ def make_sharded_frame_fn(config: SimConfig, mesh: SlabMesh, substeps: int | Non
     gates = [Slab(x0=x0, go=1, c_lo=HALO, c_hi=n_pad - 1 - HALO) for x0 in x0s]
     own = slice(HALO * pc, (HALO + loc) * pc)
 
+    plain = mode == "bucketed"
+
     @spanned("mpm.shard.substep")
-    def substep(slabs, fp, inter, rscals):
-        padded = _exchange_state_halo(slabs, pc)
+    def substep(slabs, first, fp, inter, rscals):
+        # the chunk's first substep pads its input slabs into new buffers;
+        # later ones fill the halo of the last substep's padded output
+        padded = (_exchange_state_halo(slabs, pc, plain) if first
+                  else _fill_state_halo(slabs, pc, plain))
         g1 = [stage1(p, cfg, fp, x0) for p, x0 in zip(padded, x0s)]
-        gmass = _exchange_grid([g.mass for g in g1], loc, pc)
+        gmass = _exchange_grid([g.mass for g in g1], loc, pc, plain)
         gvel = [stage2(p, Grid(mom=g.mom, mass=m), cfg, fp, x0)
                 for p, g, m, x0 in zip(padded, g1, gmass, x0s)]
-        gvel = _exchange_grid(gvel, loc, pc)
+        gvel = _exchange_grid(gvel, loc, pc, plain)
         out, splats = [], []
         for p, gv, m, gate in zip(padded, gvel, gmass, gates):
             s, sp = kernel_f(p, Grid(mom=gv, mass=m), cfg, fp, inter, gate, rscals)
-            out.append(s.replace(pos=s.pos[..., own], vel=s.vel[..., own], C=s.C[..., own],
-                                 mass=s.mass[..., own], ids=s.ids[..., own]))
+            out.append(s)
             # the halo planes' splats come from incomplete state: dropped
             splats.append(None if sp is None else sp[:, own])
         return out, splats
@@ -273,7 +364,9 @@ def make_sharded_frame_fn(config: SimConfig, mesh: SlabMesh, substeps: int | Non
         splats = None
         for i in range(nsub):
             rs = render_scals if i == nsub - 1 else None
-            slabs, splats = substep(slabs, fp, interactions, rs)
+            slabs, splats = substep(slabs, i == 0, fp, interactions, rs)
+        if nsub:  # the own planes of the last padded slabs
+            slabs = [s.replace(**{f: getattr(s, f)[..., own] for f in FIELDS}) for s in slabs]
         # each slab counted its own planes' events: the totals are the sums
         with span("mpm.shard.counters"):
             for f, c0 in zip(COUNTERS, totals):
@@ -301,7 +394,7 @@ def make_sharded_bucket_step(config: SimConfig, mesh: SlabMesh, substeps: int | 
 
 
 def _check_equal(got: BucketState, want: BucketState, label: str) -> None:
-    for f in ("pos", "vel", "C", "mass", "ids", *COUNTERS):
+    for f in (*FIELDS, *COUNTERS):
         a, b = getattr(got, f), getattr(want, f)
         if not torch.equal(a, b.to(a.device)):
             raise AssertionError(f"{label}: the sharded step's {f} differs from the "

@@ -815,7 +815,7 @@ def _check_shard_kernels(dev, config, fluid, state):
     cfg = bucketed.slab_config(config, loc + 4)
     x0s = [a * loc - 2 for a in range(4)]
     g1 = [ks.p2g1_shard_plain(p, cfg, fluid, x0) for p, x0 in zip(padded, x0s)]
-    gm = domain._exchange_grid([g.mass for g in g1], loc, pc)
+    gm = domain._exchange_grid([g.mass.clone() for g in g1], loc, pc)  # in place
     n0 = (ks.p2g1_launches, ks.p2g2u_launches, kf.shard_launches)
     for p, x0, g, m in zip(padded, x0s, g1, gm):
         got = ks.p2g1_shard(p, cfg, fluid, x0)

@@ -6,9 +6,11 @@ at K = 72 and 128); whole frames of make_full_frame_step in every render
 mode, bit for bit the same frame with every kernel swapped for its plain
 version (the `plain_chain` fixture), with each kernel's exact launches a
 frame; particle quality with surface bands, the particle-array renderer
-with a PNG cubemap and the orbit camera against the plain chain; on slabs
-of one card, the sharded demos, the sharded frames and the sharded air
-window against their unsharded runs; the guard's rollback; the CLI's
+with a PNG cubemap and the orbit camera against the plain chain; the slab
+exchange's kernel HF against its plain version; on slabs of one card, the
+sharded demos, the sharded frames and the sharded air window against their
+unsharded runs (the window and HF on distinct cards too, where the host
+has two or more); the guard's rollback; the CLI's
 spheres on the 1M pool's air window; the 2D frame; the binned engine over
 100 substeps; the CLI in this process; the native PNG of a card frame.
 
@@ -38,6 +40,7 @@ from mpm_tpu_torch.models.scenes import (benchmark_scene, benchmark_scene_2d, da
                                          fluid_3d, fluid_3d_fixed_point)
 from mpm_tpu_torch.ops import bucketed
 from mpm_tpu_torch.ops.cuda import g2p_migrate as kf
+from mpm_tpu_torch.ops.cuda import halo_fill
 from mpm_tpu_torch.ops.cuda import migrate_planes as ke
 from mpm_tpu_torch.ops.cuda import p2g_update as kp
 from mpm_tpu_torch.ops.cuda import planes
@@ -288,6 +291,137 @@ def test_orbit_camera_frames_equal_the_plain_chain(dev, flagship, plain_chain):
     assert float((imgs[0].int() - imgs[3].int()).abs().float().mean()) > 1.0
 
 
+def _mesh(kind: str) -> domain.SlabMesh:
+    """SLABS slabs: all on the first card ("one_card"), or a card each
+    where the host has SLABS, else alternating over two ("cards", and
+    "cards_peerless": every neighbour on another card); skips with fewer
+    than two cards."""
+    if kind == "one_card":
+        return domain.SlabMesh.on(torch.device("cuda", 0), SLABS)
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    m = n if n >= SLABS else 2
+    return domain.SlabMesh.of([torch.device("cuda", a % m) for a in range(SLABS)])
+
+
+@pytest.fixture
+def peer_access(monkeypatch, mesh_kind):
+    """With "cards_peerless", every pair of cards reads as having no peer
+    access (torch.cuda.can_device_access_peer), so that the exchange takes
+    its copy_ fallback; the exchanges and links made that way are dropped
+    after the test."""
+    def fresh():
+        halo_fill.links.cache_clear()
+        domain._exchange.cache_clear()
+
+    if mesh_kind == "cards_peerless":
+        fresh()
+        monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: False)
+    yield
+    if mesh_kind == "cards_peerless":
+        fresh()
+
+
+def _random_slabs(mesh, k: int, loc: int, pc: int, storage, seed: int):
+    """Unpadded slabs of random bits on the mesh's cards (the exchange
+    copies bits: any values do), with zero counters."""
+    gen = torch.Generator().manual_seed(seed)
+    slabs = []
+    for d in mesh.devices:
+        def rnd(*shape, dtype=torch.float32):
+            return torch.randn(*shape, loc * pc, generator=gen).to(dtype).to(d)
+
+        slabs.append(bucketed.BucketState(
+            pos=rnd(3, k), vel=rnd(3, k, dtype=storage), C=rnd(3, 3, k, dtype=storage),
+            mass=rnd(k), ids=torch.randint(-1, 1 << 20, (k, loc * pc), generator=gen,
+                                           dtype=torch.int32).to(d),
+            **{f: torch.zeros((), dtype=torch.int32, device=d) for f in domain.COUNTERS}))
+    return slabs
+
+
+def _allocations(mesh) -> list[int]:
+    return [torch.cuda.memory_stats(d)["allocation.all.allocated"]
+            for d in dict.fromkeys(mesh.devices)]
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mesh_kind", ["one_card", "cards", "cards_peerless"])
+@pytest.mark.parametrize("k, loc, pc", [(3, 7, 19 * 37), (8, 8, 32 * 32)])
+def test_halo_fill_matches_plain(dev, mesh_kind, peer_access, storage, k, loc, pc):
+    """Kernel HF against its plain version, bit for bit, on 4 slabs of
+    random bits: the full exchange (new padded slabs), the in-place state
+    halo over scrambled halo planes, both grid exchanges in float32 and
+    int32. A 19 x 37 plane leaves 2- and 4-byte words; 32 x 32 16-byte
+    ones. The in-place fills allocate nothing on any card. Each exchange
+    launches once a slab, and the plain version never; without peer access
+    a slab's segments from its neighbours run as copy_ (counted), and only
+    the two end slabs, with dead planes to fill, launch an in-place fill."""
+    mesh = _mesh(mesh_kind)
+    n, nf = mesh.n, len(domain.FIELDS)
+    peerless = mesh_kind == "cards_peerless"
+    fills = 2 if peerless else n  # launches of an in-place exchange
+    crossed = 2 * (n - 1) if peerless else 0  # segments a field copied a side by copy_
+
+    def counts():
+        return halo_fill.fill_launches, halo_fill.full_launches, halo_fill.copies
+
+    slabs = _random_slabs(mesh, k, loc, pc, storage, seed=loc)
+    c0 = counts()
+    got = domain._exchange_state_halo(slabs, pc)
+    assert counts() == (c0[0], c0[1] + n, c0[2] + nf * crossed)
+    c0 = counts()
+    want = domain._exchange_state_halo(slabs, pc, plain=True)
+    assert counts() == c0
+    for g, w in zip(got, want):
+        assert_states_equal(g, w)
+    halo = [slice(0, 2 * pc), slice((loc + 2) * pc, (loc + 4) * pc)]
+
+    def scrambled(seed):
+        gen = torch.Generator().manual_seed(seed)
+        out = []
+        for p in got:
+            p = p.replace(**{f: getattr(p, f).clone() for f in domain.FIELDS})
+            for f in domain.FIELDS:
+                x = getattr(p, f)
+                for h in halo:
+                    x[..., h] = torch.randint(-9, 9, x[..., h].shape, generator=gen).to(x)
+            out.append(p)
+        return out
+
+    domain._fill_state_halo(scrambled(1), pc)  # the plan and the links made
+    gk, gp = scrambled(2), scrambled(2)
+    grids = []
+    for dtype in (torch.float32, torch.int32):
+        for rows in ((), (3,)):
+            gen = torch.Generator().manual_seed(len(rows) + 7)
+            g = [torch.randint(-99, 99, (*rows, (loc + 6) * pc), generator=gen).to(dtype).to(d)
+                 for d in mesh.devices]
+            grids.append(([x.clone() for x in g], g))
+    for gg, _ in grids:  # the grid plans made
+        domain._exchange_grid([x.clone() for x in gg], loc, pc)
+    torch.cuda.synchronize()
+    a0, c0 = _allocations(mesh), counts()
+    domain._fill_state_halo(gk, pc)
+    for gg, _ in grids:
+        domain._exchange_grid(gg, loc, pc)
+    torch.cuda.synchronize()
+    assert _allocations(mesh) == a0
+    assert counts() == (c0[0] + fills * (1 + len(grids)), c0[1],
+                        c0[2] + crossed * (nf + len(grids)))
+    c0 = counts()
+    domain._fill_state_halo(gp, pc, plain=True)
+    for g, w, ref in zip(gk, gp, got):
+        assert_states_equal(g, w)
+        assert_states_equal(g, ref)  # the same planes as the full exchange's
+    for gg, want_g in grids:
+        domain._exchange_grid(want_g, loc, pc, plain=True)
+        for x, y in zip(gg, want_g):
+            assert torch.equal(x, y)
+        assert not torch.equal(gg[1][..., :2 * pc], torch.zeros_like(gg[1][..., :2 * pc]))
+    assert counts() == c0
+
+
 def test_sharded_demos_on_slabs_of_one_card(dev):
     """domain.demo_sharded_bucket_step (f32, y-windowed, bf16) and
     demo_sharded_render (whole and y-windowed) on 4 slabs of the card: each
@@ -318,6 +452,9 @@ def test_sharded_frame_equals_the_unsharded_frame(dev, case):
     ran = ["p2g1_shard", "p2g2u_shard", "g2p_migrate_shard", "g2p_migrate_emit"]
     ran += [] if mode == "velocity_spheres" else ["blur_depth", "ssfr_shade"]
     assert min(launched[k] for k in ran) > 0 and launched["p2g_update"] == 0, launched
+    substeps = sc.config.substeps  # a full exchange a slab, then 3 S - 1 in-place fills
+    assert launched["halo_full"] == SLABS, launched
+    assert launched["halo_fill"] == SLABS * (3 * substeps - 1), launched
     assert torch.equal(img, sharded()[1])
     ref, want = make_full_frame_step(cfg, rc, sc.config.substeps)(state, sc.fluid, (), view, bg)
     assert_states_equal(domain.gather_bucket_state(ss), ref)
@@ -329,17 +466,24 @@ def test_sharded_frame_equals_the_unsharded_frame(dev, case):
     assert _fluid_share(img, bg, rc) >= 0.01
 
 
-def test_sharded_air_window_equals_the_unsharded_window(dev):
+@pytest.mark.parametrize("mesh_kind", ["one_card", "cards"])
+def test_sharded_air_window_equals_the_unsharded_window(dev, mesh_kind):
     """Config 5's windows (utils/profile_shard) on the pool cut to 32^3: 150
-    settle substeps of the air window on 4 slabs of the card, through the
-    shard kernels alone, gathered, equal the unsharded window's bit for bit,
-    with the same window height, resizes and counters; no particle lost, no
-    interference."""
-    sc, win_u, win_s = config5_windows(dev, n_target=40_000, grid=(32, 32, 32))
+    settle substeps of the air window on 4 slabs of the card (or of
+    distinct cards, their halos read card to card), through the shard
+    kernels alone, gathered, equal the unsharded window's bit for bit, with
+    the same window height, resizes and counters; no particle lost, no
+    interference. The slab exchange: a full exchange a slab a chunk of 10
+    substeps, then 29 in-place fills."""
+    sc, win_u, win_s = config5_windows(dev, n_target=40_000, grid=(32, 32, 32),
+                                       mesh=_mesh(mesh_kind))
     su = settle(win_u, win_u.init(sc.state), sc.fluid)
     ss, launched = _launched(lambda: settle(win_s, win_s.init(sc.state), sc.fluid))
     assert min(launched[k] for k in ("p2g1_shard", "p2g2u_shard", "g2p_migrate_shard")) > 0
     assert launched["p2g_update"] == 0, launched
+    chunks = 150 // win_s.S
+    assert launched["halo_full"] == chunks * SLABS, launched
+    assert launched["halo_fill"] == chunks * SLABS * (3 * win_s.S - 1), launched
     check_settled(win_u, su, win_s, ss)
     assert int(su.lost) == 0 and win_u.interference == win_s.interference == 0
     assert state_is_finite(su)
@@ -349,7 +493,8 @@ def test_sharded_step_at_k72_equals_the_unsharded_kernels(dev):
     """The dense K = 72 scene (64-slot chunks) on 4 slabs of the card: 3
     sharded substeps equal 3 of kernels P and F slot for slot, each shard
     stage launched once a slab a substep (F counts its shard launches in
-    both counts) and nothing else."""
+    both counts), the slab exchange a full exchange and 8 in-place fills a
+    slab, and nothing else."""
     config, fluid, state = dense_scene(3, 72, dev, grid=16, warm=0)
     want = make_step(config, mode="cuda", substeps=3)(state, fluid)
     mesh = domain.SlabMesh.on(dev, SLABS)
@@ -358,7 +503,8 @@ def test_sharded_step_at_k72_equals_the_unsharded_kernels(dev):
         lambda: step(domain.shard_bucket_state(state, config, mesh), fluid))
     n = 3 * SLABS
     assert {k: v for k, v in launched.items() if v} == {
-        "p2g1_shard": n, "p2g2u_shard": n, "g2p_migrate_shard": n, "g2p_migrate": n}
+        "p2g1_shard": n, "p2g2u_shard": n, "g2p_migrate_shard": n, "g2p_migrate": n,
+        "halo_full": SLABS, "halo_fill": SLABS * (3 * 3 - 1)}
     assert_states_equal(domain.gather_bucket_state(got), want)
 
 
