@@ -36,8 +36,9 @@ import torch
 from mpm_tpu_torch import native
 from mpm_tpu_torch.__main__ import (kernel_launches, live_particles, main as cli_main,
                                     reset_kernel_launches)
-from mpm_tpu_torch.models.scenes import (benchmark_scene, benchmark_scene_2d, dam_break_2d,
-                                         fluid_3d, fluid_3d_fixed_point)
+from mpm_tpu_torch.models.scenes import (benchmark_dam_break, benchmark_scene,
+                                         benchmark_scene_2d, dam_break_2d, fluid_3d,
+                                         fluid_3d_fixed_point)
 from mpm_tpu_torch.ops import bucketed
 from mpm_tpu_torch.ops.cuda import g2p_migrate as kf
 from mpm_tpu_torch.ops.cuda import halo_fill
@@ -734,6 +735,29 @@ def _case_pool_1m(dev):
     _check_render_kernels(win.config, sc.fluid, state, default_view(sc.config.grid_res), grid)
 
 
+def _case_dam_1m(dev):
+    """P and F (bf16 vel/C, K=8, the whole 64 x 112 x 64 grid) on the 1M
+    dam-break at substep 60, where the benchmark's replay starts, and at
+    substep 200, mid-collapse, after chunks of 10 kernel substeps in which
+    kernel F deferred moves, F's one launch there deferring more. F's
+    counters, `cfl_clamped` among them (no particle of the dam moves more
+    than a cell in a substep up to there: it reads 0), equal the plain
+    version's."""
+    sc = benchmark_dam_break(1_000_000, device=dev)
+    config, fluid = sc.config, sc.fluid
+    step = make_step(config, mode="cuda", substeps=10)
+    state = bucketed.from_simstate(sc.state, config)
+    for _ in range(6):
+        state = step(state, fluid)
+    _check_p_and_f(config, fluid, state)
+    at60 = int(state.deferred)
+    for _ in range(14):
+        state = step(state, fluid)
+    assert int(state.lost) == 0 and int(state.deferred) > at60
+    grid = _check_p_and_f(config, fluid, state)
+    assert int(kf.g2p_migrate_plain(state, grid, config, fluid).deferred) > int(state.deferred)
+
+
 def _case_bench2d(dev):
     """sim2d at F's bars, mass and ids equal, and migrate2d on its plain
     output, on the 2D benchmark (100k particles, 256^2, K=4) after 20 plain
@@ -789,6 +813,7 @@ MAIN_PATH_CASES = {
     "fluid_3d_fixed": _case_fluid_3d_fixed,
     "s4_fixed": _case_s4_fixed,  # `run fluid_3d_fixed_point`
     "pool_1m": _case_pool_1m,  # the air window, `render --window auto`
+    "dam_1m": _case_dam_1m,  # the benchmark's dam_1m.sim: no window, bf16, moving occupancy
     "bench2d": _case_bench2d,  # `run bench2d`
     "dense_k72_3d": _case_dense(3, 72, 32),
     "dense_k128_3d": _case_dense(3, 128, 32),
@@ -805,6 +830,8 @@ def test_kernels_match_plain_at_main_path_scale(dev, case):
     gives it, at the card tests' bars (tests/test_torch_cuda.py holds the
     same kernels at 16^3 and 32^2, and their corner cases)."""
     MAIN_PATH_CASES[case](dev)
+
+
 def test_2d_frame_on_the_card(dev):
     """render_2d of dam_break_2d at spacing 0.5 after 4 kernel substeps: 8
     pixels a cell, the fluid on more than half of its particles' bounding
