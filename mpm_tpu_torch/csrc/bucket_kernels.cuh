@@ -50,21 +50,41 @@
 // so one source keeps the rounding. A fixed-point grid encodes each slot's
 // contribution (bucketed._encode) and decodes where the plain version
 // decodes.
-//   migrate_reject  one thread per source cell, per axis phase: the
-//                   conservative rule occ0(dest) + i < K, where a
-//                   left-mover's i also counts the right-movers of cell - 2,
-//                   plus the optional ceiling band on y. It writes the axis
-//                   position of every slot to a scratch row, clamped back
-//                   into the cell for rejected movers.
-//   migrate_select  one thread per destination cell: its 3K candidates in
-//                   [stay, from-left, from-right] slot order, the first K
-//                   written out of place, the rest zeroed (index -1), any
-//                   excess counted in `lost`. It moves positions, mass and
-//                   each slot's index into the migration's input only.
-//                   WIDE (K > 64): the candidates' bits a chunk of 64
-//                   slots at a time.
+// The migration has two chains. Kernel F's (launch_migrate_codes) moves a
+// one-byte code a slot through its axis phases, one launch a phase:
+//   g2p_tail        writes each slot's code beside pos, vel and C: occupied,
+//                   and on each axis the cell delta of its clamped position
+//                   (SlotCode). Phase a moves a slot along axis a only, so
+//                   its delta on every later axis is fixed here.
+//   migrate_select_codes  one thread per destination cell, per axis phase,
+//                   reading the codes of cells c-2 .. c+1 on the phase's
+//                   axis: the conservative rule occ0(dest) + i < K for its
+//                   own movers and for the movers of its two neighbours into
+//                   it (a left-mover's i also counts the right-movers of its
+//                   cell - 2), plus the optional ceiling band on y; then its
+//                   3K candidates in [stay, from-left, from-right] slot
+//                   order, the first K written out of place as a code (the
+//                   phase's field now "moved or stayed" or "rejected") and
+//                   an index into the migration's input, the rest code 0 and
+//                   index -1, any excess counted in `lost`. A thread counts
+//                   `deferred` and `ceiling` for its own cell's movers only.
+//   migrate_gather_codes  one thread per output slot, after the last phase:
+//                   pos, mass, vel, C and ids moved once, through the
+//                   composed index; on each axis whose field reads
+//                   "rejected" the position clamped into the output cell.
+// The per-pass kernel E (planes.cu) and migrate2d (substep2d.cu) keep the
+// older chain (launch_migrate), two launches a phase that carry positions
+// and masses:
+//   migrate_reject  one thread per source cell, per axis phase: the same
+//                   rule, writing the axis position of every slot to a
+//                   scratch row, clamped back into the cell for rejected
+//                   movers.
+//   migrate_select  one thread per destination cell: the candidates as
+//                   above, moving positions, mass and each slot's index.
 //   migrate_gather  one thread per output slot, after the last phase: vel,
 //                   C and ids moved once, through the composed index.
+// WIDE (K > 64): both selects take the candidates' bits a chunk of 64
+// slots at a time.
 #pragma once
 
 #include <type_traits>
@@ -95,6 +115,19 @@ __device__ __forceinline__ int axis_coord(const GridGeom<D>& g, int c, int axis)
 __device__ __forceinline__ float axis_delta(float pa, int coord) {
   return fminf(fmaxf(floorf(pa) - (float)coord, -1.0f), 1.0f);
 }
+
+// Kernel F's slot code: bit 6 set for an occupied slot (an empty one is 0),
+// and on axis a the two bits at 2a: before the axis's phase the slot's cell
+// delta on it, CODE_UP or CODE_DOWN (0: it stays), after the phase 0, or
+// CODE_REJ where the phase kept a mover back in its cell.
+struct SlotCode {
+  static constexpr unsigned OCC = 0x40, UP = 1, DOWN = 2, REJ = 3;
+  __device__ static unsigned field(unsigned code, int axis) { return (code >> (2 * axis)) & 3u; }
+  // the field of a delta in {-1, 0, 1}
+  __device__ static unsigned of_delta(float delta) {
+    return delta == 1.0f ? UP : delta == -1.0f ? DOWN : 0u;
+  }
+};
 
 // The fixed-point multiplier of a parameter block; float grids have none.
 template <typename GT, class Params>
@@ -776,12 +809,14 @@ __device__ __forceinline__ void g2p_gather(const GridGeom<D>& g, const int (&x)[
   }
 }
 
-// cfl: the cfl_clamped counter, added to (on the planes s counts).
+// cfl: the cfl_clamped counter, added to (on the planes s counts). code_out:
+// each slot's SlotCode for kernel F's migration, or null (the 2D substep).
 template <int D, typename VC, typename GT, class Params>
 __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict__ mass,
                          const GT* __restrict__ gvel, float* __restrict__ pos_out,
                          VC* __restrict__ vel_out, VC* __restrict__ C_out,
-                         int* __restrict__ cfl, Params p, Slab s) {
+                         int* __restrict__ cfl, uint8_t* __restrict__ code_out, Params p,
+                         Slab s) {
   const GridGeom<D> g = p.g;
   const size_t KC = (size_t)g.K * g.C;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -796,6 +831,7 @@ __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict_
       store_vc(vel_out, a * KC + i, 0.f);
     }
     for (int a = 0; a < D * D; ++a) store_vc(C_out, a * KC + i, 0.f);
+    if (code_out) code_out[i] = 0;
     return;
   }
   float d[D], vel[D], B[D * D];
@@ -831,6 +867,7 @@ __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict_
   }
 
   bool moved = false;
+  unsigned code = SlotCode::OCC;
   for (int a = 0; a < D; ++a) {
     // predictive wall spring (g2p.glsl:131-140)
     const float x_n = ps[a] + vel[a];
@@ -842,8 +879,11 @@ __global__ void g2p_tail(const float* __restrict__ pos, const float* __restrict_
     moved = moved || (q != ps[a]);
     pos_out[a * KC + i] = q;
     store_vc(vel_out, a * KC + i, vel[a]);
+    // the delta bucketed.reject_overflow takes, against the global coordinate
+    code |= SlotCode::of_delta(axis_delta(q, a == 0 ? x[a] + s.x0 : x[a])) << (2 * a);
   }
   for (int a = 0; a < D * D; ++a) store_vc(C_out, a * KC + i, 4.0f * B[a]);
+  if (code_out) code_out[i] = (uint8_t)code;
   if (moved && counted(s, x[0])) atomicAdd(cfl, 1);
 }
 
@@ -1036,6 +1076,224 @@ __global__ void migrate_gather(const int* idx, const T* __restrict__ vel,
   ids_o[o] = ids[i];
 }
 
+// One bucket state's arrays; vel and C as T (raw bits in migration).
+template <typename T>
+struct StateBuf {
+  float* pos;
+  T* vel;
+  T* C;
+  float* mass;
+  int* ids;
+};
+
+// The first n of m's slots in slot order; all of them when n >= their count.
+template <typename MT>
+__device__ __forceinline__ MT first_slots(MT m, int n) {
+  if (n >= slot_count(m)) return m;
+  MT rest = m;
+  for (int i = 0; i < n; ++i) rest &= rest - 1;
+  return m ^ rest;
+}
+
+// One axis phase of kernel F's migration (bucketed._migrate_axis with
+// reject_overflow before it) on slot codes: code and idx in (idx null: the
+// identity, the first phase), code_o and idx_o out, one thread per
+// destination cell c. A phase's choices depend on the codes alone: which
+// slots of cells c-2 .. c+1 are occupied and which move up or down the axis.
+// Movers are taken in slot order, so each rule of reject_overflow, "rank i
+// is accepted iff occ0(dest) + i < K" (a left-mover's i also counting the
+// right-movers of its cell - 2), accepts the first K - occ0(dest) movers:
+// c's own up-movers against occ0(c+1) and the ceiling band, its own
+// down-movers against occ0(c-1) + up(c-2), cell c-1's up-movers and cell
+// c+1's down-movers into c against occ0(c) (+ up(c-1) for the latter). The
+// neighbours evaluate the same counts, so both ends of an exchange agree.
+// The thread then fills its K output slots from its [stay, from-left,
+// from-right] candidates in slot order, as migrate_select does, and
+// rewrites the phase's field of each: REJ for a mover kept back, 0 else. It
+// counts `deferred` and `ceiling` for its own cell's rejections and `lost`
+// for its excess, on the planes s counts. WIDE (K > 64): the counts over
+// every chunk of CHUNK slots first, then the walk a chunk at a time.
+template <int D, typename M = unsigned, bool WIDE = false>
+__global__ void migrate_select_codes(const uint8_t* __restrict__ code, const int* __restrict__ idx,
+                                     uint8_t* __restrict__ code_o, int* __restrict__ idx_o,
+                                     int* __restrict__ lost, int* __restrict__ deferred,
+                                     int* __restrict__ ceiling, int axis, int ceil_band_y,
+                                     GridGeom<D> g, Slab s) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= g.C) return;
+  const int co = axis_coord(g, c, axis);
+  const int st = axis_stride(g, axis);
+  const int n_a = axis_extent(g, axis);
+  const int K = g.K;
+
+  // cell co + off's slots k0 on (bit k - k0; all K, or WIDE the chunk
+  // [k0, k0 + CHUNK)): occupied, moving up, moving down; none past the ends
+  struct Slots {
+    M occ, up, down;
+  };
+  auto slots = [&](int off, int k0) {
+    Slots b = {0, 0, 0};
+    if (co + off < 0 || co + off >= n_a) return b;
+    const int cell = c + off * st;
+    const int kend = WIDE ? min(K, k0 + CHUNK) : K;
+    for (int k = k0; k < kend; ++k) {
+      const unsigned e = code[(size_t)k * g.C + cell];
+      const unsigned f = SlotCode::field(e, axis);
+      const M bit = M(1) << (k - k0);
+      if (e & SlotCode::OCC) b.occ |= bit;
+      if (f == SlotCode::UP) b.up |= bit;
+      if (f == SlotCode::DOWN) b.down |= bit;
+    }
+    return b;
+  };
+  const Slots own = slots(0, 0), left = slots(-1, 0), right = slots(1, 0);
+  int occ_c = slot_count(own.occ), up_c = slot_count(own.up), down_c = slot_count(own.down);
+  int occ_l = slot_count(left.occ), up_l = slot_count(left.up);
+  int occ_r = slot_count(right.occ), down_r = slot_count(right.down);
+  int up_l2 = slot_count(slots(-2, 0).up);
+  if constexpr (WIDE)
+    for (int k0 = CHUNK; k0 < K; k0 += CHUNK) {
+      const Slots o = slots(0, k0), l = slots(-1, k0), r = slots(1, k0);
+      occ_c += slot_count(o.occ);
+      up_c += slot_count(o.up);
+      down_c += slot_count(o.down);
+      occ_l += slot_count(l.occ);
+      up_l += slot_count(l.up);
+      occ_r += slot_count(r.occ);
+      down_r += slot_count(r.down);
+      up_l2 += slot_count(slots(-2, k0).up);
+    }
+  // the air window's ceiling: upward moves out of the band are rejected
+  auto band = [&](int y) { return axis == 1 && ceil_band_y >= 0 && y >= ceil_band_y; };
+  // movers accepted by the overflow rule (a count, taken in slot order)
+  const int up_ok = min(up_c, K - occ_r);
+  const int down_ok = min(down_c, max(K - occ_l - up_l2, 0));
+  const int n_ceil = band(co) ? up_ok : 0;
+  // movers left to accept of each source, used up as the walk meets them
+  int go_up = up_ok - n_ceil, go_down = down_ok;
+  int take_l = band(co - 1) ? 0 : min(up_l, K - occ_c);
+  int take_r = min(down_r, max(K - occ_c - up_l, 0));
+  const int total = occ_c - go_up - go_down + take_l + take_r;
+  const int n_rej = up_c + down_c - go_up - go_down;
+
+  // source j's candidates among the slots of b: j 0, c's own slots that stay
+  // (or are kept back); 1, the left neighbour's accepted up-movers; 2, the
+  // right neighbour's accepted down-movers
+  auto candidates = [&](int j, const Slots& b) {
+    if (j == 0) {
+      const M up = first_slots(b.up, go_up), down = first_slots(b.down, go_down);
+      go_up -= slot_count(up);
+      go_down -= slot_count(down);
+      return M(b.occ & ~(up | down));
+    }
+    M m;
+    if (j == 1) {
+      m = first_slots(b.up, take_l);
+      take_l -= slot_count(m);
+    } else {
+      m = first_slots(b.down, take_r);
+      take_r -= slot_count(m);
+    }
+    return m;
+  };
+  M sel[3];  // each source's first chunk
+  sel[0] = candidates(0, own);
+  sel[1] = candidates(1, left);
+  sel[2] = candidates(2, right);
+  int j = 0, k0 = 0;
+  M m = sel[0];
+  for (int n = 0; n < K; ++n) {
+    const size_t o = (size_t)n * g.C + c;
+    while (m == 0 && j < 3) {  // WIDE: this source's next chunk; else the next source
+      if constexpr (WIDE)
+        if ((k0 += CHUNK) < K) {
+          m = candidates(j, slots(j == 0 ? 0 : (j == 1 ? -1 : 1), k0));
+          continue;
+        }
+      k0 = 0;
+      if (++j < 3) m = j == 1 ? sel[1] : sel[2];
+    }
+    if (m == 0) {
+      code_o[o] = 0;
+      idx_o[o] = -1;
+      continue;
+    }
+    const int k = k0 + slot_first(m);
+    m &= m - 1;
+    const int src = c - (j == 0 ? 0 : (j == 1 ? st : -st));
+    const size_t i = (size_t)k * g.C + src;
+    const unsigned e = code[i];
+    const unsigned f = j == 0 && SlotCode::field(e, axis) ? SlotCode::REJ : 0u;
+    code_o[o] = (uint8_t)((e & ~(3u << (2 * axis))) | (f << (2 * axis)));
+    idx_o[o] = idx ? idx[i] : (int)i;
+  }
+  if (!counted(s, axis_coord(g, c, 0))) return;
+  if (n_rej) atomicAdd(deferred, n_rej);
+  if (n_ceil) atomicAdd(ceiling, n_ceil);
+  if (total > K) atomicAdd(lost, total - K);
+}
+
+// Kernel F's one move of the state, after the last code phase: output slot
+// o takes pos, mass, vel, C and ids of slot idx[o] of the state the
+// migration started from (T: raw bits of vel and C), or zeros and id -1
+// when idx[o] < 0. On each axis whose field of code[o] reads REJ the
+// position is clamped into the output cell, which is the cell the phase
+// kept the slot in, as bucketed.reject_overflow clamps it. A thread takes
+// GATHER_SLOTS output slots, blockDim.x apart so that a warp's accesses stay
+// contiguous, and issues every load of all of them before its first store:
+// one slot a thread leaves too few bytes in flight (on an H100, at the 1M
+// pool's 1.8M slots, 110 us a call at one slot, 66 at two, 68 at four).
+// ids_o may be idx itself: each thread reads its idx before it writes.
+constexpr int GATHER_SLOTS = 2;
+
+template <int D, typename T>
+__global__ void migrate_gather_codes(const int* idx, const uint8_t* __restrict__ code,
+                                     StateBuf<T> src, StateBuf<T> out, GridGeom<D> g, Slab s) {
+  constexpr int U = GATHER_SLOTS;
+  const size_t KC = (size_t)g.K * g.C;
+  const size_t o0 = (size_t)blockIdx.x * (U * blockDim.x) + threadIdx.x;
+  int i[U];
+  unsigned e[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const size_t o = o0 + (size_t)u * blockDim.x;
+    i[u] = o < KC ? idx[o] : -1;
+    e[u] = o < KC ? code[o] : 0u;
+  }
+  float p[U][D], m[U];
+  T v[U][D], cm[U][D * D];
+  int id[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool full = i[u] >= 0;
+    const size_t j = full ? (size_t)i[u] : 0;
+    for (int a = 0; a < D; ++a) {
+      p[u][a] = full ? src.pos[a * KC + j] : 0.f;
+      v[u][a] = full ? src.vel[a * KC + j] : T(0);
+    }
+    for (int a = 0; a < D * D; ++a) cm[u][a] = full ? src.C[a * KC + j] : T(0);
+    m[u] = full ? src.mass[j] : 0.f;
+    id[u] = full ? src.ids[j] : -1;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const size_t o = o0 + (size_t)u * blockDim.x;
+    if (o >= KC) return;
+    for (int a = 0; a < D; ++a) {
+      float xa = p[u][a];
+      if (SlotCode::field(e[u], a) == SlotCode::REJ) {
+        const float cg = global_coord(s, a, axis_coord(g, (int)(o % g.C), a));
+        xa = fminf(fmaxf(xa, cg), (cg + 1.0f) - CFL_EPS);
+      }
+      out.pos[a * KC + o] = xa;
+      out.vel[a * KC + o] = v[u][a];
+    }
+    for (int a = 0; a < D * D; ++a) out.C[a * KC + o] = cm[u][a];
+    out.mass[o] = m[u];
+    out.ids[o] = id[u];
+  }
+}
+
 constexpr int THREADS = 256;
 
 // Kernel P's first launch: pass-1 mass and momentum on the nodes of
@@ -1093,22 +1351,13 @@ cudaError_t launch_p2g(const Params& p, const float* pos, const VC* vel, const V
 template <int D, typename VC, typename GT, class Params>
 cudaError_t launch_g2p_tail(const Params& p, const float* pos, const float* mass,
                             const GT* gvel, float* pos_out, VC* vel_out, VC* C_out, int* cfl,
-                            cudaStream_t stream, const Slab& s = whole_grid()) {
+                            cudaStream_t stream, const Slab& s = whole_grid(),
+                            uint8_t* code_out = nullptr) {
   const size_t KC = (size_t)p.g.K * p.g.C;
   g2p_tail<D, VC, GT><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(
-      pos, mass, gvel, pos_out, vel_out, C_out, cfl, p, s);
+      pos, mass, gvel, pos_out, vel_out, C_out, cfl, code_out, p, s);
   return cudaGetLastError();
 }
-
-// One bucket state's arrays; vel and C as T (raw bits in migration).
-template <typename T>
-struct StateBuf {
-  float* pos;
-  T* vel;
-  T* C;
-  float* mass;
-  int* ids;
-};
 
 // bucketed.migrate on `stream`: one reject/select phase per axis, the last
 // axis first, then the payload's gather. The phases carry pos, mass and the
@@ -1147,6 +1396,42 @@ cudaError_t launch_migrate(const GridGeom<D>& g, StateBuf<T> src, StateBuf<T> ou
   const size_t KC = (size_t)g.K * g.C;
   migrate_gather<D, T><<<blocks_for(KC, THREADS), THREADS, 0, stream>>>(
       src.ids, first.vel, first.C, first.ids, src.vel, src.C, src.ids, KC);
+  return cudaGetLastError();
+}
+
+
+// Kernel F's migration (bucketed.migrate) on `stream`, after g2p_tail has
+// written the slot codes into codes0: one migrate_select_codes launch per
+// axis, the last axis first, carrying codes through codes1, codes0, codes1
+// (D = 3) and source indices through out.ids and idx1 in turns, the last
+// phase's into out.ids; then the gather moves src into out through them.
+// codes1 is a [K, C] scratch row of bytes, idx1 one of int32; src's arrays
+// must not be out's.
+template <int D, typename T>
+cudaError_t launch_migrate_codes(const GridGeom<D>& g, StateBuf<T> src, StateBuf<T> out,
+                                 uint8_t* codes0, uint8_t* codes1, int* idx1, int* lost,
+                                 int* deferred, int* ceiling, int ceil_band_y,
+                                 cudaStream_t stream, const Slab& s) {
+  const auto select = by_slots(g.K, [](auto m) {
+    using S = decltype(m);
+    return &migrate_select_codes<D, typename S::M, S::WIDE>;
+  });
+  const uint8_t* code = codes0;
+  const int* idx = nullptr;
+  for (int ph = 0; ph < D; ++ph) {
+    const int axis = D - 1 - ph;
+    uint8_t* code_o = ph % 2 == 0 ? codes1 : codes0;
+    int* idx_o = axis % 2 == 0 ? out.ids : idx1;  // the last phase (axis 0) into out.ids
+    select<<<blocks_for(g.C, THREADS), THREADS, 0, stream>>>(
+        code, idx, code_o, idx_o, lost, deferred, ceiling, axis, ceil_band_y, g, s);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    code = code_o;
+    idx = idx_o;
+  }
+  const size_t KC = (size_t)g.K * g.C;
+  migrate_gather_codes<D, T><<<blocks_for(KC, GATHER_SLOTS * THREADS), THREADS, 0, stream>>>(
+      idx, code, src, out, g, s);
   return cudaGetLastError();
 }
 

@@ -27,9 +27,11 @@
 // first launch (launch_p2g_pass1); B is
 // p2g_coef then p2g_force_tile without the update, pass 2 from zero (the
 // sum with A's momentum is the caller's, as the TPU left it to XLA); D is
-// g2p_vc; E is kernel F's migration: the migrate_reject / migrate_select
-// pair per axis z, y, x, each select moving positions, mass and source
-// indices only, then one migrate_gather of vel, C and ids. The TPU split E
+// g2p_vc; E is the migration's older chain (launch_migrate; kernel F's
+// moves slot codes instead, launch_migrate_codes): the migrate_reject /
+// migrate_select pair per axis z, y, x, each select moving positions, mass
+// and source indices only, then one migrate_gather of vel, C and ids. E
+// takes a state, not G2P's tail, so it has no slot codes. The TPU split E
 // into core and C kernels and blocked the C rows to fit VMEM. Plane sweeps,
 // K blocks and halo padding do not carry over.
 

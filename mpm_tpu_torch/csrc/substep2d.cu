@@ -35,7 +35,8 @@
 //   migrate2d, for axis 1 then axis 0, two launches each: migrate_reject
 //     (deferred counted) and migrate_select (lost counted; positions, mass
 //     and source indices only); then migrate_gather (vel, C, ids); no
-//     ceiling.
+//     ceiling. This is the migration's older chain (launch_migrate); the 3D
+//     kernel F's moves one-byte slot codes (launch_migrate_codes).
 
 #include "bucket_kernels.cuh"
 

@@ -103,7 +103,7 @@ def _params(config: SimConfig, fp: FluidParams, inter: torch.Tensor | None, n_in
 def _lib() -> ctypes.CDLL:
     lib = build.load("g2p_migrate")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.g2p_migrate.argtypes = [vp] * 19 + [ci, ci, vp, vp, vp]
+    lib.g2p_migrate.argtypes = [vp] * 18 + [ci, ci, vp, vp, vp]
     lib.g2p_migrate.restype = ci
     lib.g2p_migrate_params_size.argtypes = []
     lib.g2p_migrate_params_size.restype = ci
@@ -144,13 +144,14 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
             or gvel.device != dev or not gvel.is_contiguous()):
         raise ValueError(f"grid.mom must be a contiguous {gt} [3, {gc}] tensor on {dev}")
 
-    def new_state():
-        return (torch.empty_like(state.pos), torch.empty_like(state.vel),
-                torch.empty_like(state.C), torch.empty_like(state.mass),
-                torch.empty_like(state.ids))
-
-    a, b = new_state(), new_state()
-    R = torch.empty_like(state.mass)
+    # a: G2P's pos, vel and C, and the migration's scratch index row; b: the
+    # result; codes: the migration's two rows of slot codes
+    a = (torch.empty_like(state.pos), torch.empty_like(state.vel),
+         torch.empty_like(state.C), torch.empty_like(state.ids))
+    b = (torch.empty_like(state.pos), torch.empty_like(state.vel),
+         torch.empty_like(state.C), torch.empty_like(state.mass),
+         torch.empty_like(state.ids))
+    codes = torch.empty((2, *state.mass.shape), dtype=torch.uint8, device=dev)
     cnt = torch.stack([state.lost, state.cfl_clamped, state.deferred,
                        state.ceiling]).to(torch.int32)
     inter = interaction_rows(interactions, 3, dev)
@@ -163,7 +164,7 @@ def g2p_migrate(state: BucketState, grid: Grid, config: SimConfig,
         rc = lib.g2p_migrate(
             ctypes.byref(params), P(state.pos), P(state.vel), P(state.C),
             P(state.mass), P(state.ids), P(gvel), *[P(t) for t in a],
-            *[P(t) for t in b], P(R), P(cnt),
+            *[P(t) for t in b], P(codes), P(cnt),
             int(config.vc_dtype == torch.bfloat16), int(config.fixed_point),
             scals_arg(render_scals) if emit_splats else None,
             P(splats) if emit_splats else None, build.stream_of(dev))

@@ -878,7 +878,8 @@ def _stress_grid(config, fluid, dev, seed):
 
 # case: (lattice spacing, config fields); spacing 0.5 fills every cell at K=8;
 # "dense": tests/torch_wide_cases' dense 16^3 scene at K above 64 (64 to 125
-# particles a fluid cell), each cell's slots in two or more 64-slot chunks
+# particles a fluid cell), each cell's slots in two or more 64-slot chunks;
+# "columns": _columns_state, under a still grid
 MIGRATION_CASES = {
     "f32": (0.5, dict(bin_capacity=8)),
     "bf16_k4": (0.5, dict(bin_capacity=4, storage_dtype="bfloat16")),
@@ -886,7 +887,35 @@ MIGRATION_CASES = {
     "ceiling": (0.8, dict(bin_capacity=8)),
     "dense_k72": ("dense", dict(bin_capacity=72)),
     "dense_k128": ("dense", dict(bin_capacity=128)),
+    "f32_k16": (0.5, dict(bin_capacity=16)),
+    "left_of_left": ("columns", dict(bin_capacity=8)),
 }
+
+COLUMNS = [(x, y) for x in range(4, 12) for y in range(4, 12)]
+
+
+def _columns_state(dev, kw):
+    """Columns along z of a 16^3 grid at K=8, one at each (x, y) of
+    COLUMNS: cell z=4 holds 3 particles moving up, z=5 holds 5 that stay,
+    z=6 holds 2 moving down, every position inside its cell on x and y. The
+    left-movers of z=6 rank 0 and 1 into z=5, whose occupancy is 5: 5 + rank
+    < 8, so only the rule's other term, the 3 right-movers of z=4 (cell - 2)
+    that fill z=5, rejects them. Under a still grid that is 2 deferred moves
+    a column, each clamped back into z=6."""
+    from mpm_tpu_torch.core.state import make_state
+
+    sc = fluid_3d(grid_res=16, box=8.0, device=dev)
+    config = sc.config.replace(**kw)
+    rng = np.random.default_rng(17)
+    rows = [np.array([x, y, z]) + rng.uniform(0.1, 0.9, size=(n, 3))
+            for x, y in COLUMNS for z, n in ((4, 3), (5, 5), (6, 2))]
+    state = bucketed.from_simstate(
+        make_state(np.concatenate(rows).astype(np.float32), dev), config)
+    zc = torch.arange(config.num_cells, device=dev) % config.grid_res[2]
+    step = torch.where(zc == 4, 1.0, torch.where(zc == 6, -1.0, 0.0))
+    pos = state.pos.clone()
+    pos[2] = pos[2] + torch.where(state.mass > 0, step[None, :], 0.0)
+    return config, sc.fluid, state.replace(pos=pos.contiguous())
 
 
 def _moved_from_high_slots(before, after, config) -> int:
@@ -912,13 +941,17 @@ def test_kernel_f_migration_stress_matches_plain(dev, case):
     at K=4, and on the dense scene at K=72, the packing overflows, so
     `lost` starts above 0 and the kernel carries it; the window's ceiling
     band rejects upward moves; on the dense scenes particles of slots 64
-    and up move into the neighbours' candidate lists): every field and
+    and up move into the neighbours' candidate lists; K=16 in float32 is
+    the flagship's width), or on _columns_state under a still grid, whose
+    deferred moves only the right-movers of cell - 2 cause: every field and
     counter bit for bit the plain version's. The conservative rejection
     keeps any bucket from overflowing, so the kernel adds 0 to `lost`, as
     the plain version does."""
     spacing, kw = MIGRATION_CASES[case]
     if spacing == "dense":
         config, fluid, state = dense_scene(3, kw["bin_capacity"], dev, grid=16)
+    elif spacing == "columns":
+        config, fluid, state = _columns_state(dev, kw)
     else:
         sc = fluid_3d(grid_res=16, box=8.0, spacing=spacing, device=dev)
         config, fluid, st = sc.config.replace(**kw), sc.fluid, sc.state
@@ -932,6 +965,8 @@ def test_kernel_f_migration_stress_matches_plain(dev, case):
         up = torch.zeros_like(grid.mom)
         up[1] = up[1] + 1.5 / float(fluid.dt)
         grid = Grid(mom=up, mass=None)
+    if spacing == "columns":
+        grid = Grid(mom=torch.zeros_like(grid.mom), mass=None)
     n0 = kf.launches
     got = kf.g2p_migrate(state, grid, config, fluid)
     torch.cuda.synchronize()
@@ -945,6 +980,45 @@ def test_kernel_f_migration_stress_matches_plain(dev, case):
         assert int(want.ceiling) > 0
     if spacing == "dense":
         assert _moved_from_high_slots(state, want, config) > 0
+    if spacing == "columns":
+        assert int(want.deferred) == int(state.deferred) + 2 * len(COLUMNS)
+
+
+def test_kernel_f_launches_five_kernels(dev):
+    """One call of kernel F under the profiler: five device kernels (G2P and
+    its tail, one select a migration phase, the gather), six with the splat
+    emission (the extraction last), each named with a substring that the
+    benchmark's metrics find F's time by; nothing else but PyTorch's own
+    kernels around the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpm_tpu_torch.render import extract_kernel as kx
+
+    config, fluid, state = _scene(dev)
+    state = _warm(state, config, fluid)
+    grid = kp.p2g_update_plain(state, config, fluid)
+    view, cam = _view_cam()
+    rs = kx.render_scals_for(view, cam)
+    calls = {False: lambda: kf.g2p_migrate(state, grid, config, fluid),
+             True: lambda: kf.g2p_migrate(state, grid, config, fluid, emit_splats=True,
+                                          render_scals=rs)}
+    for emit, call in calls.items():
+        call()  # built and loaded outside the profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        names = [e.name for e in kernels
+                 if not e.name.startswith(("Memcpy", "Memset")) and "at::" not in e.name]
+        main = [n for n in names if "extract_cells" not in n]
+        assert len(main) == 5, names
+        assert all(any(k in n for k in ("g2p_tail", "migrate_select", "migrate_gather"))
+                   for n in main), names
+        assert [n for n in names if "migrate_select" in n] == names[1:4], names
+        assert len(names) == 5 + emit, names
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
@@ -974,24 +1048,53 @@ def test_kernel_f_matches_plain_on_a_nan_position(dev, storage):
     assert int(want.lost) == int(state.lost)
 
 
-def test_kernel_f_shard_mode_stress_matches_plain(dev):
+def _outward_grid(gcfg, fluid, dev):
+    """A grid velocity of 1.5 cells a substep along x, away from the slab's
+    middle plane on either side."""
+    nx = gcfg.grid_res[0]
+    plane = torch.arange(gcfg.num_cells) // (gcfg.num_cells // nx)
+    gv = torch.zeros((3, gcfg.num_cells))
+    gv[0] = torch.where(plane < nx // 2, -1.5, 1.5) / float(fluid.dt)
+    return Grid(mom=gv.to(dev).contiguous(), mass=None)
+
+
+def _plane_ids(state, plane, cfg):
+    per = cfg.num_cells // cfg.grid_res[0]
+    ids = state.ids[:, plane * per:(plane + 1) * per]
+    return set(ids[ids >= 0].tolist())
+
+
+@pytest.mark.parametrize("case", ["random", "both_ends"])
+def test_kernel_f_shard_mode_stress_matches_plain(dev, case):
     """Kernel F's shard mode on each of 4 padded slabs under a random grid
-    velocity: the counters count the slab's own planes only, bit for bit
-    the plain version's."""
+    velocity, or on each of 8 under one pushing every particle away from
+    the slab's middle ("both_ends": where both padded end planes hold
+    particles, some of each leave the slab's arrays, uncounted, and movers
+    into full cells defer): the counters count the slab's own planes only,
+    bit for bit the plain version's."""
     config, fluid, state = _scene(dev, "bfloat16", spacing=0.5)
     state = _warm(state, config, fluid)
-    loc, pc = 4, 256
+    n, pc = (4, 256) if case == "random" else (8, 256)
+    loc = config.grid_res[0] // n
     padded = domain._exchange_state_halo(
-        domain.shard_bucket_state(state, config, domain.SlabMesh.on(dev, 4)).slabs, pc)
+        domain.shard_bucket_state(state, config, domain.SlabMesh.on(dev, n)).slabs, pc)
     cfg = bucketed.slab_config(config, loc + 4)
     gcfg = bucketed.slab_config(config, loc + 6)
+    crossed = 0
     for a, p in enumerate(padded):
         slab = bucketed.Slab(x0=a * loc - 2, go=1, c_lo=2, c_hi=loc + 1)
-        grid = _stress_grid(gcfg, fluid, dev, seed=7 + a)
+        grid = (_stress_grid(gcfg, fluid, dev, seed=7 + a) if case == "random"
+                else _outward_grid(gcfg, fluid, dev))
         got = kf.g2p_migrate(p, grid, cfg, fluid, slab=slab)
         want = kf.g2p_migrate_plain(p, grid, cfg, fluid, slab=slab)
         assert_states_equal(got, want)
         assert int(want.deferred) > 0
+        ends = [_plane_ids(p, end, cfg) for end in (0, loc + 3)]
+        if case == "both_ends" and all(ends):
+            kept = set(want.ids[want.ids >= 0].tolist())
+            assert all(e - kept for e in ends), a
+            crossed += 1
+    assert case == "random" or crossed >= 2
 
 
 def test_migrate2d_stress_matches_plain(dev):
