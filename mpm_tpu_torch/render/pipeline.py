@@ -17,7 +17,8 @@ and the linear states of modes reference and binned) through render_frame.
 
 Under a profiler (utils/timing.span) make_full_frame_step's frame opens
 `mpm.frame` and `mpm.frame.substeps`, and each pass its `mpm.render.*`
-span: splat (with dilate inside), thickness, blur, shade, u8.
+span: splat (with dilate inside), thickness, blur, shade, u8. On a card
+its thickness pass is one replay of a CUDA graph (_ThicknessReplay).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..ops.cuda import step as cuda_step
 from ..ops.cuda.extract_cells import render_scals_for
 from ..ops.fmath import pow_rn
 from ..utils.timing import span, spanned
+from . import splat, ssfr
 from .background import BackgroundScene, render_background
 from .camera import Camera, as_view, crop_for_aabb, look_at
 from .extract_kernel import extract_cell_splats
@@ -111,12 +113,12 @@ def _active_crop(rc: RenderConfig):
 
 
 def _frame_from_bufs(bufs, view, rc: RenderConfig, bg_color, bg_depth, cubemap_faces=None,
-                     thickness_deposits=None, crop=None) -> torch.Tensor:
+                     thickness_deposits=None, crop=None, thickness=None) -> torch.Tensor:
     """The mode chain from the splat buffers on. `thickness_deposits`: the
     raw additive buffer of splat.thickness_deposit under the thickness pass,
-    None for the constant thickness. `crop`: the crop the buffers were made
-    on; blur and shade run on it and the shaded crop is composited over the
-    full background."""
+    None for the constant thickness; or `thickness`, the pass's finished
+    map. `crop`: the crop the buffers were made on; blur and shade run on
+    it and the shaded crop is composited over the full background."""
     cam = rc.camera
     dev = bufs.depth.device
     if rc.mode == RENDER_LIT_SPHERES:
@@ -131,7 +133,8 @@ def _frame_from_bufs(bufs, view, rc: RenderConfig, bg_color, bg_depth, cubemap_f
     depth = blur_depth(bufs.depth, rc.ssfr, cam)
     if rc.mode == RENDER_DEPTH_DEBUG or rc.ssfr.debug_draw_depth:
         return depth_debug_image(depth, rc.ssfr)
-    tmap = thickness_map(thickness_deposits, rc.ssfr) if thickness_deposits is not None else None
+    tmap = thickness_map(thickness_deposits, rc.ssfr) if thickness_deposits is not None \
+        else thickness
     with span("mpm.render.shade"):
         color, _live = shade_kernel(depth, bg_color, bg_depth, cubemap_faces, view, rc.ssfr, cam,
                                     thickness=tmap, crop=crop)
@@ -166,12 +169,15 @@ def make_renderer(rc: RenderConfig, cubemap_faces=None):
 
 
 def render_frame_cells(cells: torch.Tensor, view, rc: RenderConfig, bg=None,
-                       cubemap_faces=None, thickness_cells=None) -> torch.Tensor:
+                       cubemap_faces=None, thickness_cells=None,
+                       thickness_pass=None) -> torch.Tensor:
     """The SSFR chain from splat points [5, M] on: the float frame
     [H, W, 3] on the splats' device. `bg`: the precomputed (color, depth)
     of background_for_view, else the background is traced here.
     `thickness_cells`: the cell splats of the thickness deposit, when they
-    are not `cells` (quality "particle")."""
+    are not `cells` (quality "particle"). `thickness_pass`: a callable
+    (cell splats -> thickness map) in place of the deposit and the map
+    (make_full_frame_step's _ThicknessReplay)."""
     check_mode(rc)
     bg_color, bg_depth = bg if bg is not None else background_for_view(rc, view, cells.device)
     if rc.mode == RENDER_NONE:
@@ -181,13 +187,16 @@ def render_frame_cells(cells: torch.Tensor, view, rc: RenderConfig, bg=None,
                        max_radius_px=rc.max_radius_px, crop=crop,
                        with_velocity=_needs_velocity(rc),
                        with_normals=rc.mode == RENDER_LIT_SPHERES)
-    tdep = None
+    tdep = tmap = None
     if _thickness_on(rc):
-        tdep = thickness_deposit(cells if thickness_cells is None else thickness_cells,
-                                 rc.camera, sphere_radius=rc.ssfr.particle_sphere_radius,
-                                 crop=crop)
+        tcells = cells if thickness_cells is None else thickness_cells
+        if thickness_pass is not None:
+            tmap = thickness_pass(tcells)
+        else:
+            tdep = thickness_deposit(tcells, rc.camera,
+                                     sphere_radius=rc.ssfr.particle_sphere_radius, crop=crop)
     return _frame_from_bufs(bufs, view, rc, bg_color, bg_depth, cubemap_faces=cubemap_faces,
-                            thickness_deposits=tdep, crop=crop)
+                            thickness_deposits=tdep, crop=crop, thickness=tmap)
 
 
 def render_frame_from_zbuffer(d: torch.Tensor, key, view, rc: RenderConfig, bg=None,
@@ -264,25 +273,83 @@ def emitting_frame_fn(config, cam: Camera, substeps: int):
     return fn
 
 
+class _ThicknessReplay:
+    """The thickness pass (splat.thickness_deposit, then ssfr.thickness_map)
+    of one frame step on a card, captured once as a CUDA graph and replayed
+    each frame. Its ~110 small eager ops (the deposit's sorted accumulate,
+    the Gaussian's taps) then cost the host a copy and a replay, where
+    issuing them one by one took the host longer than the card took for
+    the whole 1080p frame. The replay runs the captured kernels in their
+    order, so its map is bit for bit the eager pass's. The cell splats are
+    copied into the graph's own input, and the map returned is the graph's
+    own output, overwritten by the next replay: the frame's shade reads it
+    before that, in stream order. A replay counts as one call of each
+    function, inside one `mpm.render.thickness` span. A new shape of cell
+    splats captures anew."""
+
+    def __init__(self, rc: RenderConfig, crop):
+        self.rc, self.crop = rc, crop
+        self.graph = self.cells = self.tmap = None
+
+    def _pass(self, cells):
+        rc = self.rc
+        dep = thickness_deposit(cells, rc.camera, sphere_radius=rc.ssfr.particle_sphere_radius,
+                                crop=self.crop)
+        return thickness_map(dep, rc.ssfr)
+
+    def _capture(self, cells):
+        calls = splat.thickness_deposits, ssfr.thickness_maps
+        self.graph = None
+        self.cells = cells.clone()
+        here = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(here)
+        with torch.cuda.stream(side):  # first use (the sort's workspace) outside the capture
+            self._pass(self.cells)
+        here.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.tmap = self._pass(self.cells)
+        self.graph = graph
+        splat.thickness_deposits, ssfr.thickness_maps = calls
+
+    def __call__(self, cells: torch.Tensor) -> torch.Tensor:
+        with torch.cuda.device(cells.device):
+            if self.graph is None or cells.shape != self.cells.shape \
+                    or cells.dtype != self.cells.dtype:
+                self._capture(cells)
+            with span("mpm.render.thickness"):
+                self.cells.copy_(cells)
+                self.graph.replay()
+        splat.thickness_deposits += 1
+        ssfr.thickness_maps += 1
+        return self.tmap
+
+
 def make_full_frame_step(config, rc: RenderConfig, substeps: int, cubemap_faces=None):
     """The frame step of the render loop: (state, fluid, interactions, view,
     bg) -> (state, u8 frame [H, W, 3] on the state's device). The substeps
     end with kernel F's splat emission; quality "cell" renders those splats,
     quality "particle" the post-step state's slots, and F's cell splats
     then feed the thickness pass only. `bg` is background_for_view's pair,
-    or None to trace the background per frame."""
+    or None to trace the background per frame. On a card the thickness
+    pass replays its CUDA graph (_ThicknessReplay)."""
     check_mode(rc)
     step = emitting_frame_fn(config, rc.camera, substeps)
+    replay = _ThicknessReplay(rc, _active_crop(rc)) if _thickness_on(rc) else None
 
     @spanned("mpm.frame")
     def fn(state, fp, inter, view, bg):
         with span("mpm.frame.substeps"):
             state, cells = step(state, fp, inter, view)
+        tpass = replay if replay is not None and cells.device.type == "cuda" else None
         if rc.quality == "particle":
             img = render_frame_cells(_slot_splats(state, view, rc, config.grid_res), view, rc,
-                                     bg=bg, cubemap_faces=cubemap_faces, thickness_cells=cells)
+                                     bg=bg, cubemap_faces=cubemap_faces, thickness_cells=cells,
+                                     thickness_pass=tpass)
         else:
-            img = render_frame_cells(cells, view, rc, bg=bg, cubemap_faces=cubemap_faces)
+            img = render_frame_cells(cells, view, rc, bg=bg, cubemap_faces=cubemap_faces,
+                                     thickness_pass=tpass)
         return state, frame_to_u8(img)
 
     return fn

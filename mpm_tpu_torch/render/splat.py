@@ -35,6 +35,7 @@ from .extract_kernel import CELL_BG
 
 BG_DEPTH = 4000.0  # "no fluid here" sentinel, past the blur guard 3990
 KEY_EMPTY = 0x7F7FFFFF  # velocity key of a pixel no splat reaches
+thickness_deposits = 0  # calls of thickness_deposit, on every device (a replay counts as one)
 
 
 class SplatBuffers(NamedTuple):
@@ -372,11 +373,14 @@ def thickness_deposit(cells: torch.Tensor, cam: Camera, sphere_radius: float = 1
     rectangle. Sums over disjoint point sets add, so slabs composite it
     with a sum. Each point off the frame (or empty) adds its zero to a slot
     of its own past the image, not to one shared guard slot."""
+    global thickness_deposits
+    thickness_deposits += 1
     pix, on, h, w = _pixels(cells, cam, crop)
     depth, count = cells[2], cells[4]
     m = cells.shape[1]
     own = torch.where(on, pix, h * w + torch.arange(m, device=cells.device))
-    focal = torch.tensor(cam.focal_px, dtype=torch.float32, device=cells.device)
+    # a fill, not an upload: a copy from host memory would wait for the card
+    focal = torch.full((), cam.focal_px, dtype=torch.float32, device=cells.device)
     fz = focal / torch.clamp_min(depth, 1e-3)
     weight = torch.where(on, (2.0 * sphere_radius) * count * (fz * fz), 0.0)
     return _sum_by_pixel(h * w + m, own, weight)[:h * w].reshape(h, w)

@@ -29,6 +29,7 @@ from .camera import Camera, as_view, norm3, screen_to_view_dir, view_pos_from_de
 IOR = 1.333
 ETA = 1.0 / IOR
 F0 = 0.02  # Fresnel at 0 degrees (fluid_render_fixed_depth.glsl:14)
+thickness_maps = 0  # calls of thickness_map, on every device (a replay counts as one)
 
 __all__ = ["FAR_GUARD", "IOR", "ETA", "F0", "SSFRParams", "blur_depth", "composite_threshold",
            "depth_debug_image", "gaussian_blur", "lit_spheres_shade", "reconstruct_normals",
@@ -113,6 +114,8 @@ def gaussian_blur(img: torch.Tensor, radius: int) -> torch.Tensor:
 def thickness_map(deposits: torch.Tensor, params: SSFRParams) -> torch.Tensor:
     """Blurred, scaled per-pixel thickness; `params.thickness` is its
     minimum (the reference's `minimum_thickness`)."""
+    global thickness_maps
+    thickness_maps += 1
     t = gaussian_blur(deposits, params.thickness_blur_radius)
     return torch.clamp_min(params.thickness_scale * t, params.thickness)
 

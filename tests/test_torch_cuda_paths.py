@@ -234,6 +234,68 @@ def test_particle_quality_frame_equals_the_plain_chain(dev, plain_chain, thickne
     assert _fluid_share(img, bg, rc) >= 0.01
 
 
+# frames of the benchmark's render cells at their own size: (width, height,
+# SSFRParams fields) of bench_torch/workloads/<cell>.json on fluid_3d at 64^3
+CELL_FRAMES = {"flagship_thickness_1080": (1920, 1080, {"thickness_pass": True,
+                                                        "thickness_scale": 0.35,
+                                                        "thickness_blur_radius": 6})}
+
+
+@pytest.mark.parametrize("case", list(CELL_FRAMES))
+def test_cell_frame_equals_the_plain_chain(dev, plain_chain, case):
+    """The reference's scene (fluid_3d at 64^3, 157,464 particles, after 20
+    kernel substeps) at a benchmark cell's size under default_view and the
+    domain crop: bit for bit the plain chain, the stepped states equal, the
+    due launches, and one thickness deposit and one map a frame."""
+    sc = fluid_3d(device=dev)
+    state = make_step(sc.config, mode="cuda", substeps=20)(
+        bucketed.from_simstate(sc.state, sc.config), sc.fluid)
+    w, h, ssfr = CELL_FRAMES[case]
+    view = default_view(sc.config.grid_res)
+    rc = domain_crop(RenderConfig(camera=Camera(width=w, height=h), ssfr=SSFRParams(**ssfr)),
+                     sc.config, view)
+    assert rc.crop is not None
+    bg = background_for_view(rc, view, dev)
+    frame = make_full_frame_step(sc.config, rc, sc.config.substeps)
+    calls = rsplat.thickness_deposits, rssfr.thickness_maps
+    (s1, img), launched = _launched(lambda: frame(state, sc.fluid, (), view, bg))
+    assert launched == due_launches("default", sc.config.substeps)
+    assert (rsplat.thickness_deposits - calls[0], rssfr.thickness_maps - calls[1]) == (1, 1)
+    with plain_chain():
+        s2, plain = frame(state, sc.fluid, (), view, bg)
+    assert (rsplat.thickness_deposits - calls[0], rssfr.thickness_maps - calls[1]) == (2, 2)
+    assert torch.equal(img, plain), int((img != plain).any(dim=-1).sum())
+    assert_states_equal(s1, s2)
+    assert int(s1.lost) == 0
+    assert _fluid_share(img, bg, rc) >= 0.01
+
+
+def test_thickness_replay_equals_the_eager_pass(dev, flagship):
+    """make_full_frame_step's CUDA graph of the thickness pass: over two
+    frames' cell splats and a third of another shape (captured anew), the
+    replayed map bit for bit the eager deposit and map, one call of each
+    counted a replay, and the frame through render_frame_cells the eager
+    frame."""
+    sc, state, view = flagship
+    rc = _rc("default", sc.config, view, thickness_pass=True)
+    bg = background_for_view(rc, view, dev)
+    step = rpipeline.emitting_frame_fn(sc.config, rc.camera, sc.config.substeps)
+    s1, c1 = step(state, sc.fluid, (), view)
+    _, c2 = step(s1, sc.fluid, (), view)
+    replay = rpipeline._ThicknessReplay(rc, rc.crop)
+    for cells in (c1, c2, c2[:, :-7].contiguous()):
+        want = rssfr.thickness_map(
+            rsplat.thickness_deposit(cells, rc.camera, rc.ssfr.particle_sphere_radius,
+                                     crop=rc.crop), rc.ssfr)
+        calls = rsplat.thickness_deposits, rssfr.thickness_maps
+        got = replay(cells)
+        assert (rsplat.thickness_deposits - calls[0], rssfr.thickness_maps - calls[1]) == (1, 1)
+        assert torch.equal(got, want)
+        assert bool((want > rc.ssfr.thickness).any())
+        frame = rpipeline.render_frame_cells(cells, view, rc, bg=bg, thickness_pass=replay)
+        assert torch.equal(frame, rpipeline.render_frame_cells(cells, view, rc, bg=bg))
+
+
 def _write_faces(d) -> None:
     """Six 64x64 gradient cubemap faces `sky-1.png .. sky-6.png` in `d`."""
     ramp = np.linspace(0, 255, 64).astype(np.uint8)
